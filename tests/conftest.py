@@ -26,6 +26,9 @@ def pytest_addoption(parser):
 
 
 def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device (the port's kernels); each "
+                   "such test decides inside itself and skips without one")
     if config.getoption("--lockcheck"):
         from repro.analysis import lockcheck
         config._lockcheck_state = lockcheck.install()
