@@ -1,12 +1,16 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one H100.
 
 1. Prints torch/CUDA versions and the card's name and power limit.
-2. Builds the port's CUDA kernel (``csrc/bitunpack.cu``) from this
-   checkout and prints nvcc's register/spill report.
-3. Holds the kernel bit-exact against its plain PyTorch version on the
-   card and against the numpy codec, over a sweep of widths and lengths;
-   times it (device time from ``torch.profiler``, time per call from
-   CUDA events) beside its memory bound.
+2. Builds the port's three CUDA kernels (``csrc/bitunpack.cu``,
+   ``csrc/filter_agg.cu``, ``csrc/block_agg.cu``) from this checkout,
+   one nvcc each, all at once, and prints nvcc's register/spill report.
+3. Holds ``bitunpack`` bit-exact against its plain PyTorch version on the
+   card and against the numpy codec, and ``filter_agg``/``block_agg``
+   against their plain versions (every comparator, float32 and int32
+   columns, bool/uint8/int32 masks, ragged lengths, empty selections,
+   NaN; sums and counts at rtol 3e-5 / atol 1e-3, min and max exact);
+   times each kernel (device time from ``torch.profiler``, time per call
+   from CUDA events) beside its memory bound.
 4. Drives the port's main path through the user entry points: a 2^28-row
    event table (3 GiB raw, the paper's Table 1 scale) written into an
    8-OSD, 3-replica store with the default 8 MiB objects, then a
@@ -14,10 +18,23 @@
    recovery and the aggregate again — every bitpack column decoded on
    the card.  Results are checked against numpy on the generated table
    and against the same scans with the numpy decode.
+5. Device pushdown on the same table, on the card: ``pushdown_torch.
+   pushdown_filter_aggregate`` and ``ops.filter_aggregate`` (the
+   ``filter_agg`` kernel) and ``ops.masked_aggregate`` (``block_agg``),
+   checked against the OSD scan's float64 result and numpy.
+6. Packed ingest at deepseek_67b's vocabulary (102,400: bitpack17) and
+   the train_4k batch (256 x 4096 tokens): a corpus written into an
+   8-OSD, 3-replica store, a packed, prefetching, windowed
+   ``ObjectDataLoader`` -> ``device_stream`` -> ``fused_batch`` (the
+   ``bitunpack`` kernel) for 8 steps, each batch bit-equal to the plain
+   loader's.
 
-The last line is ``{"ok": true, "device": {...}}``; any failure raises
-and the exit code is non-zero.  Needs a CUDA device and a checkout of
-the repository.
+Each path runs with the kernels' launch counts set to 0 just before it
+and read just after; every kernel of a path must have launched.  The
+line before the last two is the ``kernels`` JSON object; the last line
+is ``{"ok": true, "device": {...}}``; any failure raises and the exit
+code is non-zero.  Needs a CUDA device and a checkout of the
+repository.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--rows-log2 N]
 """
@@ -35,9 +52,17 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
+DEVICE = "cuda:0"
 FULL_ROWS_LOG2 = 28            # 2^28 rows x 12 B = 3 GiB, the paper's 3 GB
 SWEEP_BITS = (1, 5, 7, 8, 13, 16, 17, 20, 24, 31, 32)
 SWEEP_N = (0, 1, 31, 32, 33, 129, 1000, 4096, (1 << 24) + 17)
+AGG_SWEEP_N = (0, 1, 8191, 8192, 12345, (1 << 24) + 17)
+CMPS = ("<", "<=", ">", ">=", "==", "!=")
+KERNELS = ("bitunpack", "filter_agg", "block_agg")
+# packed ingest: deepseek_67b's vocabulary (src/repro/configs/
+# deepseek_67b.py:20) and the train_4k shape (configs/base.py:36)
+INGEST_VOCAB, INGEST_SEQ, INGEST_BATCH = 102_400, 4096, 256
+INGEST_SEQS, INGEST_STEPS = 4096, 8
 
 
 def _load_port():
@@ -48,9 +73,16 @@ def _load_port():
     sys.path.insert(0, str(root / "src"))
     import repro_torch.core as core
     from repro_torch.core import format as fmt
-    from repro_torch.kernels import _build, ref
+    from repro_torch.core import pushdown_torch
+    from repro_torch.data import corpus, fused_ingest, pipeline
+    from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import bitunpack as bu
-    return core, fmt, bu, ref, _build
+    from repro_torch.kernels import block_agg as ba
+    from repro_torch.kernels import filter_agg as fa
+    return argparse.Namespace(
+        core=core, fmt=fmt, bu=bu, fa=fa, ba=ba, ops=ops, ref=ref,
+        build=_build, pushdown=pushdown_torch, corpus=corpus,
+        pipeline=pipeline, ingest=fused_ingest)
 
 
 def card_line() -> str:
@@ -80,10 +112,11 @@ def cuda_ms(fn, iters: int) -> float:
     return a.elapsed_time(b) / iters
 
 
-def traced(fn) -> tuple[float, float]:
-    """(device busy ms, host wall s) of one call of ``fn``: the summed
-    durations of the kernels and copies ``torch.profiler`` saw on the
-    card, and the host clock around the call and a synchronise."""
+def traced(fn) -> tuple[float, float, int]:
+    """(device busy ms, host wall s, device events) of one call of
+    ``fn``: the summed durations of the kernels and copies
+    ``torch.profiler`` saw on the card, the host clock around the call
+    and a synchronise, and how many device events the profiler kept."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -92,14 +125,17 @@ def traced(fn) -> tuple[float, float]:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
-    return busy_us / 1e3, wall
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in dev_events)
+    return busy_us / 1e3, wall, len(dev_events)
 
 
-def device_ms(fn, iters: int) -> float:
-    """Device time per call of ``fn`` (kernels and copies only, without
-    the host's launch overhead), from a profiled run of ``iters`` calls."""
+def device_ms(fn, iters: int) -> tuple[float, float]:
+    """(device ms, device events) per call of ``fn`` from a profiled run
+    of ``iters`` calls.  The profiler may keep fewer events than the
+    calls launched (seen on the H100 for back-to-back calls late in a
+    long process), so the events per call are reported beside it."""
     for _ in range(3):
         fn()
 
@@ -107,10 +143,58 @@ def device_ms(fn, iters: int) -> float:
         for _ in range(iters):
             fn()
 
-    busy, _ = traced(loop)
+    busy, _, events = traced(loop)
     if busy <= 0:
         raise AssertionError("torch.profiler saw no device time")
-    return busy / iters
+    return busy / iters, events / iters
+
+
+def isolated_ms(fn, iters: int) -> float:
+    """Median device time of one call of ``fn``: CUDA events recorded
+    right before and after it, behind a GPU-side wait long enough for the
+    host to enqueue the whole call, so no host launch cost is in it."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)        # ~1 ms at 1.98 GHz
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def time_pair(kernel, plain, iters: int) -> dict:
+    """A kernel and its plain version: device ms per call (CUDA events
+    around one call, no launch cost; the number the records keep), the
+    profiler's device ms and events per call beside it, and the ms per
+    call with the host's launch cost (CUDA events around back-to-back
+    calls)."""
+    p_iters = max(2, iters // 10)
+    prof_ms, prof_events = device_ms(kernel, iters)
+    plain_prof_ms, plain_prof_events = device_ms(plain, p_iters)
+    return {"ms": isolated_ms(kernel, iters),
+            "plain_ms": isolated_ms(plain, p_iters),
+            "profiler_ms": prof_ms, "profiler_events": prof_events,
+            "plain_profiler_ms": plain_prof_ms,
+            "plain_profiler_events": plain_prof_events,
+            "call_ms": cuda_ms(kernel, iters),
+            "plain_call_ms": cuda_ms(plain, p_iters)}
+
+
+def timing_line(r: dict) -> str:
+    return (f"device {r['ms']:.5f} ms, bound {r['bound_ms']:.5f} ms at "
+            f"3.35 TB/s ({r['bound_ms'] / r['ms']:.1%} of it), plain "
+            f"device {r['plain_ms']:.5f} ms; profiler: kernel "
+            f"{r['profiler_ms']:.5f} ms ({r['profiler_events']:.2f} device "
+            f"events per call), plain {r['plain_profiler_ms']:.5f} ms "
+            f"({r['plain_profiler_events']:.2f}); per call with launch: "
+            f"kernel {r['call_ms']:.5f} ms, plain {r['plain_call_ms']:.5f} "
+            f"ms")
 
 
 def _values(rng, bits: int, n: int) -> np.ndarray:
@@ -164,22 +248,12 @@ def kernel_sweep(dev, fmt, bu, ref) -> int:
 
 def kernel_timing(bu, n: int, bits: int, words: torch.Tensor,
                   iters: int) -> dict:
-    """Device time of the kernel and of the plain version (profiler),
-    and each one's time per call with the host's launch overhead in it
-    (CUDA events around back-to-back calls)."""
-    def kernel():
-        bu.bitunpack_groups(words, bits, n)
-
-    def plain():
-        bu.bitunpack_plain(words, bits, n)
-
-    p_iters = max(1, iters // 10)
-    ms, plain_ms = device_ms(kernel, iters), device_ms(plain, p_iters)
+    """bitunpack and its plain version, timed by :func:`time_pair`."""
+    r = time_pair(lambda: bu.bitunpack_groups(words, bits, n),
+                  lambda: bu.bitunpack_plain(words, bits, n), iters)
     nbytes = n * bits / 8 + 4 * n
-    return {"n": n, "bits": bits, "ms": ms, "plain_ms": plain_ms,
-            "call_ms": cuda_ms(kernel, iters),
-            "plain_call_ms": cuda_ms(plain, p_iters),
-            "bound_ms": bound_ms(n, bits), "GB_per_s": nbytes / ms / 1e6}
+    return {"n": n, "bits": bits, **r, "bound_ms": bound_ms(n, bits),
+            "GB_per_s": nbytes / r["ms"] / 1e6}
 
 
 def object_breakdown(dev, fmt, bu, n: int, bits: int) -> dict:
@@ -207,12 +281,114 @@ def object_breakdown(dev, fmt, bu, n: int, bits: int) -> dict:
     return {k: float(np.median(v[3:])) for k, v in times.items()}
 
 
+def _agg_values(rng, n: int, dtype) -> np.ndarray:
+    """Unit normals (tile sums stay where atol 1e-3 holds), or integers
+    whose tile sums are exact in float32."""
+    if dtype == np.int32:
+        return rng.integers(-1000, 1000, n).astype(np.int32)
+    return rng.normal(size=n).astype(np.float32)
+
+
+def _held(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
+    """Kernel partials against the plain version's: sums and counts at
+    rtol 3e-5 / atol 1e-3, min and max exact (NaN where NaN).  Returns
+    the largest |difference| (NaN positions left out)."""
+    torch.cuda.synchronize()
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} != "
+                             f"{tuple(want.shape)}")
+    if got.numel() == 0:
+        return 0.0
+    try:
+        torch.testing.assert_close(got[:, :2], want[:, :2], rtol=3e-5,
+                                   atol=1e-3, equal_nan=True)
+        torch.testing.assert_close(got[:, 2:], want[:, 2:], rtol=0, atol=0,
+                                   equal_nan=True)
+    except AssertionError as e:
+        raise AssertionError(f"{what}: kernel differs from plain: {e}")
+    d = (got - want).abs()
+    d = d[~torch.isnan(d)]
+    return float(d.max()) if d.numel() else 0.0
+
+
+def agg_sweep(dev, P) -> tuple[float, float]:
+    """filter_agg and block_agg against their plain versions on the card;
+    returns each kernel's largest |kernel - plain| over the sweep."""
+    rng = np.random.default_rng(3)
+    fa_err = ba_err = 0.0
+    for n in AGG_SWEEP_N:
+        for vt, ft in ((np.float32, np.float32), (np.int32, np.int32),
+                       (np.float32, np.int32)):
+            v = torch.from_numpy(_agg_values(rng, n, vt)).to(dev)
+            f = torch.from_numpy(rng.integers(0, 50, n).astype(ft)).to(dev)
+            for cmp in CMPS:
+                for thr in (25, 1e9):           # 1e9: the empty selection
+                    what = f"filter_agg n={n} {vt.__name__}/{ft.__name__} " \
+                           f"{cmp} {thr}"
+                    fa_err = max(fa_err, _held(
+                        P.fa.filter_agg(v, f, cmp, thr),
+                        P.fa.filter_agg_plain(v, f, cmp, thr), what))
+            for mt in (torch.bool, torch.uint8, torch.int32):
+                m = (f < 20).to(mt)
+                ba_err = max(ba_err, _held(
+                    P.ba.block_agg(v, m), P.ba.block_agg_plain(v, m),
+                    f"block_agg n={n} {vt.__name__}/{mt}"))
+        if n > 1:
+            # a selected NaN, a NaN in the filter, a misaligned start
+            v = torch.from_numpy(_agg_values(rng, n, np.float32)).to(dev)
+            f = torch.from_numpy(rng.integers(0, 50, n).astype(np.float32)
+                                 ).to(dev)
+            v[n // 2], f[n // 2] = float("nan"), 1.0
+            f[0] = float("nan")
+            for cmp in CMPS:
+                fa_err = max(fa_err, _held(
+                    P.fa.filter_agg(v, f, cmp, 25),
+                    P.fa.filter_agg_plain(v, f, cmp, 25),
+                    f"filter_agg NaN n={n} {cmp}"))
+                fa_err = max(fa_err, _held(
+                    P.fa.filter_agg(v[1:], f[1:], cmp, 25),
+                    P.fa.filter_agg_plain(v[1:], f[1:], cmp, 25),
+                    f"filter_agg misaligned n={n - 1} {cmp}"))
+            ba_err = max(ba_err, _held(
+                P.ba.block_agg(v, f < 20), P.ba.block_agg_plain(v, f < 20),
+                f"block_agg NaN n={n}"))
+            ba_err = max(ba_err, _held(
+                P.ba.block_agg(v[1:], f[1:] < 20),
+                P.ba.block_agg_plain(v[1:], f[1:] < 20),
+                f"block_agg misaligned n={n - 1}"))
+    # the combined results against the whole-column oracles
+    n = AGG_SWEEP_N[-1]
+    v = torch.from_numpy(_agg_values(rng, n, np.float32)).to(dev)
+    f = torch.from_numpy(rng.integers(0, 50, n).astype(np.int32)).to(dev)
+    for got, want, what in (
+            (P.ops.filter_aggregate(v, f, "<", 25),
+             P.ref.filter_agg_ref(v, f, "<", 25), "filter_aggregate"),
+            (P.ops.masked_aggregate(v, f > 30),
+             P.ref.block_agg_ref(v, f > 30), "masked_aggregate")):
+        _held(torch.stack([got[k] for k in ("sum", "count", "min", "max")])
+              [None], torch.stack([want[k] for k in ("sum", "count", "min",
+                                                     "max")])[None], what)
+    return fa_err, ba_err
+
+
+def agg_bound_ms(n: int, *dtypes: torch.dtype, tile: int = 8192) -> float:
+    """Least time: each input column read once, one (4,) float32 row per
+    tile written, at 3.35 TB/s."""
+    nbytes = sum(n * torch.empty(0, dtype=d).element_size() for d in dtypes)
+    return (nbytes + 16 * -(-n // tile)) / HBM_BYTES_PER_S * 1e3
+
+
+def agg_timing(kernel, plain, n: int, dtypes, iters: int) -> dict:
+    return {"n": n, **time_pair(kernel, plain, iters),
+            "bound_ms": agg_bound_ms(n, *dtypes)}
+
+
 # --------------------------------------------------------------------------
 # main-path phase
 # --------------------------------------------------------------------------
 
 
-def make_events(dev, n: int, seed: int) -> dict[str, np.ndarray]:
+def make_events(dev, n: int, seed: int) -> dict[str, torch.Tensor]:
     """The event table of the pushdown benchmark, generated on the card."""
     torch.manual_seed(seed)
     run = torch.randint(0, 100, (n,), device=dev, dtype=torch.int32)
@@ -220,8 +396,7 @@ def make_events(dev, n: int, seed: int) -> dict[str, np.ndarray]:
     gamma = torch.distributions.Gamma(torch.tensor(2.0, device=dev),
                                       torch.tensor(1 / 20.0, device=dev))
     e_pt = gamma.sample((n,)).to(torch.float32)
-    return {"e_pt": e_pt.cpu().numpy(), "run": run.cpu().numpy(),
-            "hits": hits.cpu().numpy()}
+    return {"e_pt": e_pt, "run": run, "hits": hits}
 
 
 def _bitpack_cols(store, omap, fmt) -> dict[str, set[str]]:
@@ -237,19 +412,16 @@ def _bitpack_cols(store, omap, fmt) -> dict[str, set[str]]:
     return out
 
 
-def main_path(dev, core, fmt, bu, rows_log2: int, seed: int) -> dict:
-    n = 1 << rows_log2
-    t0 = time.perf_counter()
-    table = make_events(dev, n, seed)
-    gen_s = time.perf_counter() - t0
-    store = core.make_store(8, replicas=3)
+def main_path(P, table: dict[str, np.ndarray]) -> dict:
+    store = P.core.make_store(8, replicas=3)
     try:
-        return _drive(core, fmt, bu, store, table, n, gen_s)
+        return _drive(P.core, P.fmt, P.bu, store, table,
+                      len(table["e_pt"]))
     finally:
         store.close()
 
 
-def _drive(core, fmt, bu, store, table, n, gen_s) -> dict:
+def _drive(core, fmt, bu, store, table, n) -> dict:
     vol = core.GlobalVOL(store)
     ds = core.LogicalDataset(
         "events", (core.Column("e_pt", "float32"), core.Column("run", "int32"),
@@ -352,10 +524,10 @@ def _drive(core, fmt, bu, store, table, n, gen_s) -> dict:
         if not np.array_equal(rows_np[k], rows[k]):
             raise AssertionError(f"numpy decode rows: {k} differs")
     # one more filter -> agg under the profiler: how busy the card is
-    busy_ms, traced_s = traced(q_agg)
+    busy_ms, traced_s, _ = traced(q_agg)
     f = store.fabric.snapshot()
     return {"rows": n, "objects": n_obj, "rows_per_object": per_obj,
-            "generate_s": gen_s, **walls, "launches": launches,
+            **walls, "launches": launches,
             "bitpack_decodes": expect, "sum_e_pt": agg["sum(e_pt)"],
             "count": agg["count(e_pt)"], "projected_rows": int(m.sum()),
             "read_rows": r1 - r0, "recovered": rec["objects_moved"],
@@ -364,6 +536,153 @@ def _drive(core, fmt, bu, store, table, n, gen_s) -> dict:
             "traced_filter_agg_s": traced_s,
             "traced_filter_agg_device_busy_ms": busy_ms,
             "traced_filter_agg_device_busy_share": busy_ms / 1e3 / traced_s}
+
+
+# --------------------------------------------------------------------------
+# device pushdown phase
+# --------------------------------------------------------------------------
+
+
+def _zero_counts(P) -> None:
+    P.bu.launches = P.fa.launches = P.ba.launches = 0
+
+
+def _counts(P) -> dict[str, int]:
+    return {"bitunpack": P.bu.launches, "filter_agg": P.fa.launches,
+            "block_agg": P.ba.launches}
+
+
+def _scalars(res: dict) -> dict[str, float]:
+    return {k: float(res[k]) for k in ("sum", "count", "min", "max")}
+
+
+def _check_agg(name: str, got: dict, want_sum: float, want_count: float,
+               sel: np.ndarray) -> None:
+    """Sum and count to rtol 3e-5 (float32 partials against a float64
+    reference; the count is inexact above 2^24), min and max exactly."""
+    for k, want in (("sum", want_sum), ("count", want_count)):
+        if abs(got[k] - want) > 3e-5 * abs(want):
+            raise AssertionError(f"{name}: {k} {got[k]!r} != {want!r} "
+                                 f"(rtol 3e-5)")
+    if got["min"] != float(sel.min()) or got["max"] != float(sel.max()):
+        raise AssertionError(f"{name}: min/max {got['min']!r}/{got['max']!r}"
+                             f" != {float(sel.min())!r}/{float(sel.max())!r}")
+
+
+def pushdown_path(P, ev: dict[str, torch.Tensor],
+                  table: dict[str, np.ndarray], scan: dict) -> dict:
+    """The device data plane on the event table that lives on the card:
+    pushdown_filter_aggregate and ops.filter_aggregate (filter_agg) and
+    ops.masked_aggregate (block_agg)."""
+    walls = {}
+    _zero_counts(P)                      # the path's run starts here
+    t = time.perf_counter()
+    pd = _scalars(P.pushdown.pushdown_filter_aggregate(
+        ev["e_pt"], ev["run"], "<", 50))
+    walls["pushdown_filter_aggregate_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    fo = _scalars(P.ops.filter_aggregate(ev["e_pt"], ev["run"], "<", 50))
+    walls["filter_aggregate_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    mo = _scalars(P.ops.masked_aggregate(ev["e_pt"], ev["hits"] > 20))
+    walls["masked_aggregate_s"] = time.perf_counter() - t
+    launches = _counts(P)                # ... and ends here
+    if launches != {"bitunpack": 0, "filter_agg": 2, "block_agg": 1}:
+        raise AssertionError(f"device pushdown launches {launches}")
+
+    sel = table["e_pt"][table["run"] < 50]
+    for name, got in (("pushdown_filter_aggregate", pd),
+                      ("filter_aggregate", fo)):
+        _check_agg(name, got, scan["sum_e_pt"], scan["count"], sel)
+    sel = table["e_pt"][table["hits"] > 20]
+    _check_agg("masked_aggregate", mo, float(sel.astype(np.float64).sum()),
+               float(sel.size), sel)
+    return {**walls, "launches": launches,
+            "pushdown_filter_aggregate": pd, "masked_aggregate": mo}
+
+
+# --------------------------------------------------------------------------
+# packed-ingest phase
+# --------------------------------------------------------------------------
+
+
+def ingest_path(dev, P) -> dict:
+    """Corpus -> store -> packed windowed loader -> device_stream ->
+    fused_batch on the card, each batch held bit-equal to the plain
+    loader's (whose OSDs decode on the card)."""
+    core, Loader = P.core, P.pipeline.ObjectDataLoader
+    spec = P.corpus.CorpusSpec(n_seqs=INGEST_SEQS, seq_len=INGEST_SEQ,
+                               vocab_size=INGEST_VOCAB)
+    store = core.make_store(8, replicas=3)
+    try:
+        vol = core.GlobalVOL(store)
+        t = time.perf_counter()
+        # one write: a vol.write whose row range covers part of an
+        # object replaces that object with only those rows (both
+        # packages), so the corpus is not written in chunks
+        omap = P.corpus.build_corpus(vol, spec, chunk_rows=INGEST_SEQS)
+        build_s = time.perf_counter() - t
+        bits = P.fmt.bitpack_width(INGEST_VOCAB - 1)
+
+        def rx_of(loader) -> tuple[list, int]:
+            rx = store.fabric.snapshot()["client_rx"]
+            batches = [loader.make_batch(s) for s in range(INGEST_STEPS)]
+            return batches, store.fabric.snapshot()["client_rx"] - rx
+
+        want, rx_plain = rx_of(Loader(vol, "corpus", global_batch=INGEST_BATCH,
+                                      prefetch=0))
+        packed_words, rx_packed = rx_of(Loader(
+            vol, "corpus", global_batch=INGEST_BATCH, packed=True,
+            prefetch=0))
+        if packed_words[0]["tokens_packed"].shape != (
+                INGEST_BATCH, INGEST_SEQ // 32, bits):
+            raise AssertionError(f"packed batch shape "
+                                 f"{packed_words[0]['tokens_packed'].shape}")
+
+        loader = Loader(vol, "corpus", global_batch=INGEST_BATCH, packed=True,
+                        prefetch=2, window_steps=2)
+        got, step_ms = [], []
+        _zero_counts(P)                  # the path's run starts here
+        t0 = t = time.perf_counter()
+        stream = P.ingest.device_stream(loader, lookahead=1, device=dev)
+        for _ in range(INGEST_STEPS):
+            got.append(P.ingest.fused_batch(next(stream)))
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            step_ms.append((now - t) * 1e3)
+            t = now
+        wall_s = time.perf_counter() - t0
+        launches = _counts(P)            # ... and ends here
+        stream.close()
+        loader.close()
+        if launches != {"bitunpack": INGEST_STEPS, "filter_agg": 0,
+                        "block_agg": 0}:
+            raise AssertionError(f"ingest launches {launches}")
+        for s, (fb, w) in enumerate(zip(got, want)):
+            for k in ("tokens", "labels"):
+                if not torch.equal(fb[k], torch.from_numpy(w[k]).to(dev)):
+                    raise AssertionError(f"ingest step {s}: {k} differs "
+                                         f"from the plain loader's")
+        # the card's share of a step: one batch's H2D copy from pinned
+        # memory, and its unpack + labels (after the path's counts)
+        host = torch.from_numpy(packed_words[0]["tokens_packed"]
+                                .view(np.int32)).pin_memory()
+        h2d_ms = isolated_ms(lambda: host.to(dev, non_blocking=True), 20)
+        on_dev = host.to(dev)
+        fused_ms = isolated_ms(lambda: P.ingest.fused_batch(on_dev), 20)
+        return {"sequences": INGEST_SEQS, "seq_len": INGEST_SEQ,
+                "vocab": INGEST_VOCAB, "bits": bits,
+                "global_batch": INGEST_BATCH, "steps": INGEST_STEPS,
+                "objects": omap.n_objects, "build_corpus_s": build_s,
+                "wall_s": wall_s, "ms_per_step": wall_s * 1e3 / INGEST_STEPS,
+                "step_ms": step_ms, "h2d_ms": h2d_ms,
+                "fused_batch_ms": fused_ms,
+                "device_share": (h2d_ms + fused_ms) * INGEST_STEPS
+                / (wall_s * 1e3),
+                "client_rx_plain": rx_plain,
+                "client_rx_packed": rx_packed, "launches": launches}
+    finally:
+        store.close()
 
 
 # --------------------------------------------------------------------------
@@ -378,40 +697,53 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    core, fmt, bu, ref, _build = _load_port()
-    dev = torch.device("cuda:0")
+    P = _load_port()
+    fmt, bu = P.fmt, P.bu
+    dev = torch.device(DEVICE)
     card = card_line()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
     print(f"card: {card}", flush=True)
 
     t = time.perf_counter()
-    bu.ensure_built()
-    info = _build.build_info["bitunpack"]
-    print(f"build: bitunpack {info['seconds']:.2f}s nvcc, "
+    P.build.build_all(KERNELS)
+    for mod in (bu, P.fa, P.ba):
+        mod.ensure_built()
+    print(f"build: {len(KERNELS)} kernels, one nvcc each at once, "
           f"{time.perf_counter() - t:.2f}s with load", flush=True)
-    for line in info["ptxas"].splitlines():
-        if "ptxas info" in line and ("registers" in line or "spill" in line
-                                     or "Compiling" in line):
-            print(f"  {line.strip()}")
+    for name in KERNELS:
+        info = P.build.build_info[name]
+        print(f"  {name}: {info['seconds']:.2f}s nvcc")
+        for line in info["ptxas"].splitlines():
+            if "ptxas info" in line and ("registers" in line
+                                         or "spill" in line):
+                print(f"    {line.strip()}")
 
     t = time.perf_counter()
-    worst = kernel_sweep(dev, fmt, bu, ref)
-    print(f"kernel sweep: bits {list(SWEEP_BITS)} x n {list(SWEEP_N)} "
-          f"bit-exact vs plain on card and numpy codec "
+    bu_err = kernel_sweep(dev, fmt, bu, P.ref)
+    print(f"kernel sweep: bitunpack bits {list(SWEEP_BITS)} x n "
+          f"{list(SWEEP_N)} bit-exact vs plain on card and numpy codec "
           f"({time.perf_counter() - t:.1f}s)", flush=True)
+    t = time.perf_counter()
+    fa_err, ba_err = agg_sweep(dev, P)
+    print(f"kernel sweep: filter_agg (6 comparators, float32/int32 "
+          f"columns) and block_agg (bool/uint8/int32 masks) x n "
+          f"{list(AGG_SWEEP_N)}, empty selections, NaN, misaligned starts "
+          f"vs plain on card: max |err| filter_agg {fa_err!r}, block_agg "
+          f"{ba_err!r} ({time.perf_counter() - t:.1f}s)", flush=True)
 
     ds_rows = 1 << args.rows_log2
-    obj_rows = len(core.plan_partition(core.LogicalDataset(
-        "events", (core.Column("e_pt", "float32"),
-                   core.Column("run", "int32"), core.Column("hits", "int32")),
-        ds_rows, 4096), core.PartitionPolicy()).extents[0])
+    obj_rows = len(P.core.plan_partition(P.core.LogicalDataset(
+        "events", (P.core.Column("e_pt", "float32"),
+                   P.core.Column("run", "int32"),
+                   P.core.Column("hits", "int32")),
+        ds_rows, 4096), P.core.PartitionPolicy()).extents[0])
     obj_bits = 7                                   # run in [0, 100)
     rng = np.random.default_rng(2)
     obj_words = _words_tensor(fmt.bitpack_encode(
         _values(rng, obj_bits, obj_rows), obj_bits), obj_bits).to(dev)
     at_obj = kernel_timing(bu, obj_rows, obj_bits, obj_words, 200)
-    big_n, big_bits = 1 << 28, 17
+    big_n, big_bits = ds_rows, 17
     big_words = torch.randint(-(1 << 31), 1 << 31, (big_n // 32, big_bits),
                               dtype=torch.int32, device=dev)
     big_out = bu.bitunpack_groups(big_words, big_bits, big_n)
@@ -422,35 +754,78 @@ def main(argv=None) -> int:
     del big_out
     at_big = kernel_timing(bu, big_n, big_bits, big_words, 20)
     del big_words
+    ing_n = INGEST_BATCH * INGEST_SEQ
+    ing_words = torch.randint(-(1 << 31), 1 << 31, (ing_n // 32, big_bits),
+                              dtype=torch.int32, device=dev)
+    at_ing = kernel_timing(bu, ing_n, big_bits, ing_words, 200)
+    del ing_words
     for name, r in (("main-path object column", at_obj),
-                    ("2^28 values", at_big)):
-        print(f"kernel time [{name}] n={r['n']} bitpack{r['bits']}: "
-              f"device {r['ms']:.5f} ms ({r['GB_per_s']:.0f} GB/s), bound "
-              f"{r['bound_ms']:.5f} ms at 3.35 TB/s "
-              f"({r['bound_ms'] / r['ms']:.1%} of it), plain device "
-              f"{r['plain_ms']:.5f} ms; per call with launch: kernel "
-              f"{r['call_ms']:.5f} ms, plain {r['plain_call_ms']:.5f} ms"
-              f"  [{card}]", flush=True)
+                    (f"2^{args.rows_log2} values", at_big),
+                    ("ingest batch 256 x 4096", at_ing)):
+        print(f"kernel time bitunpack [{name}] n={r['n']} bitpack{r['bits']} "
+              f"({r['GB_per_s']:.0f} GB/s): {timing_line(r)}  [{card}]",
+              flush=True)
     split = object_breakdown(dev, fmt, bu, obj_rows, obj_bits)
     print(f"one object column n={obj_rows} bitpack{obj_bits}: H2D "
           f"{split['h2d_ms']:.4f} ms, kernel {split['kernel_ms']:.4f} ms, "
           f"D2H {split['d2h_ms']:.4f} ms  [{card}]", flush=True)
 
-    res = main_path(dev, core, fmt, bu, args.rows_log2, args.seed)
+    t = time.perf_counter()
+    ev = make_events(dev, ds_rows, args.seed)
+    table = {k: v.cpu().numpy() for k, v in ev.items()}
+    gen_s = time.perf_counter() - t
+    res = main_path(P, table)
+    res["generate_s"] = gen_s
     if args.rows_log2 < FULL_ROWS_LOG2:
         print(f"reduced: main path at 2^{args.rows_log2} rows of the "
               f"paper's 2^{FULL_ROWS_LOG2}")
     print("main path: " + json.dumps(res), flush=True)
-    print("kernels: bitunpack (held against its plain version)")
+
+    pd = pushdown_path(P, ev, table, res)
+    print("device pushdown: " + json.dumps(pd), flush=True)
+    mask = ev["hits"] > 20
+    f32, i32 = torch.float32, torch.int32
+    at_fa = agg_timing(
+        lambda: P.fa.filter_agg(ev["e_pt"], ev["run"], "<", 50),
+        lambda: P.fa.filter_agg_plain(ev["e_pt"], ev["run"], "<", 50),
+        ds_rows, (f32, i32), 20)
+    at_ba = agg_timing(lambda: P.ba.block_agg(ev["e_pt"], mask),
+                       lambda: P.ba.block_agg_plain(ev["e_pt"], mask),
+                       ds_rows, (f32, torch.bool), 20)
+    for name, what, r in (("filter_agg", "float32 values, int32 filter", at_fa),
+                          ("block_agg", "float32 values, bool mask", at_ba)):
+        print(f"kernel time {name} [{what}] n={r['n']}: {timing_line(r)}"
+              f"  [{card}]", flush=True)
+    del ev, mask, table
+
+    ing = ingest_path(dev, P)
+    print(f"reduced: corpus of {INGEST_SEQS // INGEST_BATCH} steps (a "
+          f"training corpus is larger; each step is the full train_4k "
+          f"batch)")
+    print("packed ingest: " + json.dumps(ing), flush=True)
+    print(f"packed ingest: {ing['ms_per_step']:.3f} ms per step, client_rx "
+          f"packed {ing['client_rx_packed']} B vs plain "
+          f"{ing['client_rx_plain']} B over {INGEST_STEPS} steps, "
+          f"bitunpack launches {ing['launches']['bitunpack']}  [{card}]",
+          flush=True)
+
+    launches = {"bitunpack": res["launches"] + ing["launches"]["bitunpack"],
+                "filter_agg": pd["launches"]["filter_agg"],
+                "block_agg": pd["launches"]["block_agg"]}
+    print(f"launches per path: scan bitunpack {res['launches']}; device "
+          f"pushdown {pd['launches']}; packed ingest {ing['launches']}")
     print(f"card: {card}")
+    rows = [("bitunpack", "src/repro/kernels/bitunpack.py:52", bu_err, at_obj),
+            ("filter_agg", "src/repro/kernels/filter_agg.py:46", fa_err,
+             at_fa),
+            ("block_agg", "src/repro/kernels/block_agg.py:32", ba_err, at_ba)]
     print(json.dumps({"kernels": [{
-        "name": "bitunpack", "route": "cuda",
-        "source": "src/repro_torch/csrc/bitunpack.cu",
-        "replaces": "src/repro/kernels/bitunpack.py:52",
-        "launches": res["launches"], "max_abs_err": worst,
-        "ms": at_obj["ms"], "plain_ms": at_obj["plain_ms"],
-        "bound_ms": at_obj["bound_ms"], "bound_by": "bytes",
-        "library_ms": None}]}))
+        "name": name, "route": "cuda",
+        "source": f"src/repro_torch/csrc/{name}.cu", "replaces": replaces,
+        "launches": launches[name], "max_abs_err": err, "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": "bytes", "library_ms": None}
+        for name, replaces, err, r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,0 +1,2 @@
+"""Distributed layer of the port: the mesh rules the device pushdown
+reads (``sharding``)."""

@@ -1,12 +1,14 @@
 """Build and load the port's CUDA kernels.
 
 Each kernel is one ``csrc/<name>.cu`` with a plain ``extern "C"``
-launcher.  On first use it is compiled by ``nvcc`` for ``sm_90a`` into a
-shared library under the package's ``build/`` directory and loaded with
-``ctypes``.  The library's file name carries a digest of the source and
-the flags, so an edited source is rebuilt and a stale library is never
-loaded.  Nothing is compiled at import time: this module imports on
-machines with no CUDA toolkit.
+launcher; headers shared between kernels are ``csrc/*.cuh``.  On first
+use a kernel is compiled by ``nvcc`` for ``sm_90a`` into a shared
+library under the package's ``build/`` directory and loaded with
+``ctypes``.  The library's file name carries a digest of the source, the
+shared headers and the flags, so an edited source is rebuilt and a
+stale library is never loaded.  :func:`build_all` starts one ``nvcc``
+per kernel at once.  Nothing is compiled at import time: this module
+imports on machines with no CUDA toolkit.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -47,8 +50,9 @@ def _nvcc() -> str:
 
 def _compile(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-                          ).hexdigest()[:12]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha1(src.read_bytes() + headers
+                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     lib = BUILD_DIR / f"lib{name}-{digest}.so"
     log = lib.with_suffix(".log")
     if lib.exists():
@@ -58,7 +62,8 @@ def _compile(name: str) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     # build under a private name, then rename: processes that build the
     # same source at once each finish with a whole library in place
-    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
+    tmp = lib.with_name(
+        f"{lib.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
     t0 = time.perf_counter()
     proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
                           capture_output=True, text=True)
@@ -88,3 +93,17 @@ def load(name: str) -> ctypes.CDLL:
         if name not in _libs:
             _libs[name] = ctypes.CDLL(str(_compile(name)))
         return _libs[name]
+
+
+def build_all(names) -> None:
+    """Build and load the named kernels, one ``nvcc`` each, all started
+    together (the build is the slow part of a cold start)."""
+    names = [n for n in names if n not in _libs]
+    if not names:
+        return
+    with ThreadPoolExecutor(len(names)) as ex:
+        built = list(ex.map(_compile, names))
+    with _lock:
+        for name, lib in zip(names, built):
+            if name not in _libs:
+                _libs[name] = ctypes.CDLL(str(lib))

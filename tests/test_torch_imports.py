@@ -27,7 +27,12 @@ def _modules():
 
 def test_import_pulls_in_no_jax_and_no_reference():
     mods = list(_modules())
-    assert "repro_torch.core.store" in mods
+    assert {"repro_torch.core.store", "repro_torch.core.pushdown_torch",
+            "repro_torch.kernels.ops", "repro_torch.kernels.filter_agg",
+            "repro_torch.kernels.block_agg",
+            "repro_torch.distributed.sharding", "repro_torch.data.corpus",
+            "repro_torch.data.pipeline",
+            "repro_torch.data.fused_ingest"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
