@@ -3,14 +3,18 @@
 1. Prints torch/CUDA versions and the card's name and power limit.
 2. Builds the port's three CUDA kernels (``csrc/bitunpack.cu``,
    ``csrc/filter_agg.cu``, ``csrc/block_agg.cu``) from this checkout,
-   one nvcc each, all at once, and prints nvcc's register/spill report.
+   one nvcc each, all at once, and prints nvcc's register, shared-memory
+   and spill report, ``bitunpack``'s dynamic shared memory at the shapes
+   it runs, and each kernel's SASS instruction count (``cuobjdump``).
 3. Holds ``bitunpack`` bit-exact against its plain PyTorch version on the
-   card and against the numpy codec, and ``filter_agg``/``block_agg``
+   card and against the numpy codec (every width 1..32, ragged n, and
+   words 1-3 words past a 16-byte line), and ``filter_agg``/``block_agg``
    against their plain versions (every comparator, float32 and int32
    columns, bool/uint8/int32 masks, ragged lengths, empty selections,
    NaN; sums and counts at rtol 3e-5 / atol 1e-3, min and max exact);
    times each kernel (device time from ``torch.profiler``, time per call
-   from CUDA events) beside its memory bound.
+   from CUDA events) beside its memory bound, ``bitunpack`` also at 2^28
+   values of 1, 7, 17 and 32 bits.
 4. Drives the port's main path through the user entry points: a 2^28-row
    event table (3 GiB raw, the paper's Table 1 scale) written into an
    8-OSD, 3-replica store with the default 8 MiB objects, then a
@@ -42,7 +46,11 @@ Run from the root of a checkout:  python3 chip_smoke.py [--rows-log2 N]
 from __future__ import annotations
 
 import argparse
+import collections
 import json
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -54,8 +62,11 @@ import torch
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 DEVICE = "cuda:0"
 FULL_ROWS_LOG2 = 28            # 2^28 rows x 12 B = 3 GiB, the paper's 3 GB
-SWEEP_BITS = (1, 5, 7, 8, 13, 16, 17, 20, 24, 31, 32)
+SWEEP_BITS = tuple(range(1, 33))
 SWEEP_N = (0, 1, 31, 32, 33, 129, 1000, 4096, (1 << 24) + 17)
+OFFSETS = (1, 2, 3)            # words past a 16-byte line
+OFFSET_N = (33, 4096, (1 << 24) + 17)
+WIDTH_BITS = (1, 7, 17, 32)    # bitunpack timed at 2^28 values of each
 AGG_SWEEP_N = (0, 1, 8191, 8192, 12345, (1 << 24) + 17)
 CMPS = ("<", "<=", ">", ">=", "==", "!=")
 KERNELS = ("bitunpack", "filter_agg", "block_agg")
@@ -244,6 +255,97 @@ def kernel_sweep(dev, fmt, bu, ref) -> int:
         if not torch.equal(got, ref.bitunpack_ref(tiles, bits)):
             raise AssertionError(f"bitunpack tiles differ: bits={bits}")
     return worst
+
+
+def offset_sweep(dev, fmt, bu) -> int:
+    """Words that start 1-3 words past a 16-byte line (views into a
+    larger tensor on the card), every width: kernel against its plain
+    version, and against the numpy codec up to 4096 values.  Returns
+    the largest |kernel - plain| seen (0)."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    worst = 0
+    for bits in SWEEP_BITS:
+        for n in OFFSET_N:
+            size = -(-n // 32) * bits
+            buf = torch.randint(-(1 << 31), 1 << 31, (size + 6,),
+                                dtype=torch.int32, device=dev, generator=gen)
+            for off in OFFSETS:
+                w = buf[off:off + size].view(-1, bits)
+                if w.data_ptr() % 16 != 4 * off:
+                    raise AssertionError(f"view at word {off} is not "
+                                         f"{4 * off} bytes past a line")
+                got = bu.bitunpack_groups(w, bits, n)
+                plain = bu.bitunpack_plain(w, bits, n)
+                torch.cuda.synchronize()
+                diff = (got.to(torch.int64) - plain.to(torch.int64)).abs()
+                worst = max(worst, int(diff.max()))
+                if not torch.equal(got, plain) or (n <= 4096 and not
+                        np.array_equal(got.cpu().numpy().view(np.uint32),
+                                       fmt.bitpack_decode(
+                                           w.cpu().numpy().view(np.uint32),
+                                           bits, n))):
+                    raise AssertionError(f"bitunpack differs: bits={bits} "
+                                         f"n={n} word offset {off}")
+    return worst
+
+
+def sass_counts(lib: str) -> dict[str, collections.Counter]:
+    """Per kernel function of a built library, its SASS instructions by
+    opcode (``cuobjdump -sass``), and under ``"shuffle span"`` the
+    instructions from its first shuffle to its last; {} where the
+    toolkit has no cuobjdump."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.access(exe, os.X_OK):
+        return {}
+    dump = subprocess.run([exe, "-sass", lib], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    out, ops = {}, None
+    for line in dump.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            ops = out[m.group(1)] = []
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                     r"([A-Z][A-Z0-9_]*)", line)
+        if m and ops is not None:
+            ops.append(m.group(1))
+    counts = {}
+    for fn, seq in out.items():
+        c = collections.Counter(seq)
+        shfl = [i for i, op in enumerate(seq) if op == "SHFL"]
+        if shfl:
+            c["shuffle span"] = shfl[-1] - shfl[0] + 1
+        counts[fn] = c
+    return counts
+
+
+def build_report(P, bu, dev) -> None:
+    """nvcc's register, shared-memory and spill lines, bitunpack's
+    dynamic shared memory where it runs, and SASS counts."""
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name in KERNELS:
+        info = P.build.build_info[name]
+        print(f"  {name}: {info['seconds']:.2f}s nvcc")
+        for line in sorted(set(info["ptxas"].splitlines())):
+            if "ptxas info" in line and ("registers" in line
+                                         or "spill" in line):
+                print(f"    {line.strip()}")
+        same = collections.Counter()     # template instances alike
+        for c in sass_counts(info["path"]).values():
+            span = c.pop("shuffle span", None)
+            top = ", ".join(f"{op} {k}" for op, k in c.most_common(6))
+            same[f"{c.total()} instructions ({top})"
+                 + (f", {span} from the first SHFL to the last"
+                    if span else "")] += 1
+        for text, k in same.items():
+            print(f"    SASS per kernel function: {text}"
+                  + (f" [{k} instances]" if k > 1 else ""))
+    for n, bits in ((696_320, 7), (1 << 20, 17), (1 << 28, 1),
+                    (1 << 28, 17), (1 << 28, 32)):
+        plan = bu.launch_plan(-(-n // 32), bits, n_sms)
+        print(f"    bitunpack n={n} bitpack{bits}: tile {plan.tile} groups, "
+              f"{plan.n_tiles} tiles, grid {plan.grid}, dynamic shared "
+              f"memory {plan.smem_bytes} B per CTA")
 
 
 def kernel_timing(bu, n: int, bits: int, words: torch.Tensor,
@@ -711,18 +813,18 @@ def main(argv=None) -> int:
         mod.ensure_built()
     print(f"build: {len(KERNELS)} kernels, one nvcc each at once, "
           f"{time.perf_counter() - t:.2f}s with load", flush=True)
-    for name in KERNELS:
-        info = P.build.build_info[name]
-        print(f"  {name}: {info['seconds']:.2f}s nvcc")
-        for line in info["ptxas"].splitlines():
-            if "ptxas info" in line and ("registers" in line
-                                         or "spill" in line):
-                print(f"    {line.strip()}")
+    build_report(P, bu, dev)
 
     t = time.perf_counter()
     bu_err = kernel_sweep(dev, fmt, bu, P.ref)
-    print(f"kernel sweep: bitunpack bits {list(SWEEP_BITS)} x n "
-          f"{list(SWEEP_N)} bit-exact vs plain on card and numpy codec "
+    print(f"kernel sweep: bitunpack bits 1..32 x n {list(SWEEP_N)} "
+          f"bit-exact vs plain on card and numpy codec "
+          f"({time.perf_counter() - t:.1f}s)", flush=True)
+    t = time.perf_counter()
+    bu_err = max(bu_err, offset_sweep(dev, fmt, bu))
+    print(f"kernel sweep: bitunpack bits 1..32 x n {list(OFFSET_N)} at "
+          f"word offsets {list(OFFSETS)} (4-12 bytes past a 16-byte line) "
+          f"bit-exact vs plain on card, and vs numpy codec to n=4096 "
           f"({time.perf_counter() - t:.1f}s)", flush=True)
     t = time.perf_counter()
     fa_err, ba_err = agg_sweep(dev, P)
@@ -743,24 +845,28 @@ def main(argv=None) -> int:
     obj_words = _words_tensor(fmt.bitpack_encode(
         _values(rng, obj_bits, obj_rows), obj_bits), obj_bits).to(dev)
     at_obj = kernel_timing(bu, obj_rows, obj_bits, obj_words, 200)
-    big_n, big_bits = ds_rows, 17
-    big_words = torch.randint(-(1 << 31), 1 << 31, (big_n // 32, big_bits),
-                              dtype=torch.int32, device=dev)
-    big_out = bu.bitunpack_groups(big_words, big_bits, big_n)
-    torch.cuda.synchronize()
-    if not torch.equal(big_out, bu.bitunpack_plain(big_words, big_bits,
-                                                   big_n)):
-        raise AssertionError("bitunpack differs at 2^28 values")
-    del big_out
-    at_big = kernel_timing(bu, big_n, big_bits, big_words, 20)
-    del big_words
+    big_n, ing_bits = ds_rows, 17
+    at_width = {}
+    for bits in WIDTH_BITS:
+        big_words = torch.randint(-(1 << 31), 1 << 31, (big_n // 32, bits),
+                                  dtype=torch.int32, device=dev)
+        big_out = bu.bitunpack_groups(big_words, bits, big_n)
+        torch.cuda.synchronize()
+        if not torch.equal(big_out, bu.bitunpack_plain(big_words, bits,
+                                                       big_n)):
+            raise AssertionError(f"bitunpack differs at 2^"
+                                 f"{args.rows_log2} values of {bits} bits")
+        del big_out
+        at_width[bits] = kernel_timing(bu, big_n, bits, big_words, 20)
+        del big_words
     ing_n = INGEST_BATCH * INGEST_SEQ
-    ing_words = torch.randint(-(1 << 31), 1 << 31, (ing_n // 32, big_bits),
+    ing_words = torch.randint(-(1 << 31), 1 << 31, (ing_n // 32, ing_bits),
                               dtype=torch.int32, device=dev)
-    at_ing = kernel_timing(bu, ing_n, big_bits, ing_words, 200)
+    at_ing = kernel_timing(bu, ing_n, ing_bits, ing_words, 200)
     del ing_words
     for name, r in (("main-path object column", at_obj),
-                    (f"2^{args.rows_log2} values", at_big),
+                    *((f"2^{args.rows_log2} values", at_width[b])
+                      for b in WIDTH_BITS),
                     ("ingest batch 256 x 4096", at_ing)):
         print(f"kernel time bitunpack [{name}] n={r['n']} bitpack{r['bits']} "
               f"({r['GB_per_s']:.0f} GB/s): {timing_line(r)}  [{card}]",

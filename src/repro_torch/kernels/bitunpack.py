@@ -2,9 +2,27 @@
 
 Words of the ``bitpack<b>`` codec (``core.format``): each group of 32
 values is ``bits`` uint32 words, word k holding bit k of all 32.  The
-CUDA kernel is ``csrc/bitunpack.cu`` (one warp per group, a ballot per
-value); it replaces the reference's Pallas kernel.  uint32 words and
+CUDA kernel ``csrc/bitunpack.cu`` replaces the reference's Pallas kernel
+(``repro/kernels/bitunpack.py::_bitunpack_kernel``).  uint32 words and
 values are carried as int32 tensors holding the same bits.
+
+The kernel is bound by memory: n*bits/8 bytes read and 4n written, at
+3.35 TB/s.  Its design, in the source's note:
+
+- each CTA stages contiguous tiles of ``tile`` groups into shared memory
+  with 16-byte ``cp.async``, ``STAGES`` = 3 deep, so two tiles' loads
+  are in flight while one is transposed;
+- the 32x32 bit transpose is a five-stage ``__shfl_xor_sync`` butterfly,
+  15 instructions per group at any width (the bound leaves about 54 at
+  bitpack17), four groups per warp per trip;
+- words at any 4-byte offset (views such as ``packed[1:]``) are staged
+  by 16-byte copies of their aligned body and 4-byte copies of the
+  ragged head and tail, inside the kernel.
+
+:func:`launch_plan` picks the geometry from the column's size: the
+largest tile (256 down to 32 groups) that still gives every SM two
+tiles, and a grid of at most ``BLOCKS_PER_SM`` CTAs per SM that walk
+the tiles with a grid stride.
 
 Public shapes follow the reference:
 
@@ -22,7 +40,9 @@ PyTorch.  ``launches`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -31,6 +51,47 @@ from repro_torch.kernels import _build
 
 launches = 0
 _count_lock = threading.Lock()
+
+# the kernel's constants (csrc/bitunpack.cu), and the H100's limits
+STAGES = 3                     # tiles resident in shared memory per CTA
+TILES = (256, 128, 64, 32)     # groups per tile, largest first
+BLOCKS_PER_SM = 4              # __launch_bounds__(256, 4)
+SMEM_PER_SM = 233_472          # bytes of shared memory on an SM
+SMEM_RESERVED = 1_024          # the runtime's share of each CTA
+
+_sm_counts: dict[int, int] = {}
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    tile: int                  # groups per tile
+    n_tiles: int
+    grid: int                  # CTAs; CTA b takes tiles b, b + grid, ...
+    smem_bytes: int            # STAGES stages of tile*bits + 4 words
+
+
+@functools.lru_cache(maxsize=1024)    # a scan asks for a few shapes often
+def launch_plan(n_groups: int, bits: int, n_sms: int) -> LaunchPlan:
+    """The kernel's geometry for ``n_groups`` groups of ``bits`` words on
+    a card of ``n_sms`` SMs.  A stage holds ``tile * bits + 4`` words: a
+    tile's words start at any 4-byte offset within a 16-byte line and
+    keep it in shared memory, and the stride stays a multiple of 16
+    bytes (``tile * bits`` is a multiple of 32)."""
+    for tile in TILES:
+        if -(-n_groups // tile) >= 2 * n_sms:
+            break
+    n_tiles = -(-n_groups // tile)
+    smem = STAGES * (tile * bits + 4) * 4
+    per_sm = min(BLOCKS_PER_SM, SMEM_PER_SM // (smem + SMEM_RESERVED))
+    return LaunchPlan(tile, n_tiles, min(n_tiles, per_sm * n_sms), smem)
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index                 # set on every CUDA tensor's device
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _sm_counts[idx]
 
 
 def ensure_built() -> ctypes.CDLL:
@@ -42,7 +103,8 @@ def ensure_built() -> ctypes.CDLL:
         # set calls straight away.  c_void_p keeps pointers 64-bit.
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                       ctypes.c_int, ctypes.c_int64, ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     return lib
 
 
@@ -70,7 +132,8 @@ def _check(words: torch.Tensor, bits: int, n: int) -> None:
 
 
 def _launch(words: torch.Tensor, bits: int, n: int) -> torch.Tensor:
-    """(G, bits) int32 on a CUDA device -> (n,) int32 there, by the kernel."""
+    """(G, bits) int32 on a CUDA device -> (n,) int32 there, by the
+    kernel.  The words may start at any 4-byte offset."""
     global launches
     if not words.is_contiguous():
         raise ValueError("words must be contiguous")
@@ -78,10 +141,13 @@ def _launch(words: torch.Tensor, bits: int, n: int) -> torch.Tensor:
     if n == 0:
         return out
     lib = ensure_built()
+    n_groups = -(-n // 32)             # the groups the n values occupy
+    plan = launch_plan(n_groups, bits, _sm_count(words.device))
     with torch.cuda.device(words.device):
         stream = torch.cuda.current_stream(words.device).cuda_stream
         err = lib.bitunpack_launch(words.data_ptr(), out.data_ptr(),
-                                   words.shape[0], bits, n, stream)
+                                   n_groups, bits, n, plan.tile, plan.grid,
+                                   plan.smem_bytes, stream)
     if err != 0:
         raise RuntimeError(f"bitunpack kernel launch failed: CUDA error {err}")
     with _count_lock:
