@@ -32,9 +32,34 @@
    ``ObjectDataLoader`` -> ``device_stream`` -> ``fused_batch`` (the
    ``bitunpack`` kernel) for 8 steps, each batch bit-equal to the plain
    loader's.
+7. Skyhook on the main path's table: ``SkyhookDriver`` runs the filter ->
+   agg and the filter -> project as a ``Query`` and through
+   ``driver.scan`` (equal to ``vol.scan`` and numpy, at most one request
+   per up OSD), then the filter -> agg client-side: both walls and both
+   ``client_rx``.
+8. Session: 16 threads behind a barrier issue the same filter -> agg
+   through one ``ScanSession``; every result equals the direct scan's.
+9. Faults: a ``FaultInjector`` campaign (8 bit flips, 2 torn writes on
+   distinct copies) over the table's objects; the filter -> agg stays
+   exact, scrub finds and heals exactly the injected copies and a second
+   scrub finds none; transient failures on one OSD are retried.
+10. Maintenance: a second table of the same schema and size in 1 MiB
+    objects in a fresh store, compacted (8 MiB policy), scrubbed,
+    rebalanced and aged by the four daemons while a client thread loops
+    the filter -> agg (each result held against numpy); then
+    ``apply_storage_resize`` adds an OSD, a topology change and a
+    rebalance, and the query again.
+11. Checkpoint: ``CheckpointManager(every_steps=1, keep=2)`` saves three
+    steps of one deepseek_67b decoder layer's weights (692M bf16 values,
+    1.38 GB) from the card into a fresh store and restores the latest
+    onto the card, bit-equal; the retired step is gone.
+12. KV pages: a dense (95, 1, 4096, 8, 128) bf16 K and V cache on the
+    card through ``cache_to_objects`` (2048-token pages on axis 2) and
+    back through ``objects_to_cache``, bit-equal.
 
 Each path runs with the kernels' launch counts set to 0 just before it
-and read just after; every kernel of a path must have launched.  The
+and read just after; every kernel of a path must have launched (the
+checkpoint and KV paths decode nothing and launch no kernel).  The
 line before the last two is the ``kernels`` JSON object; the last line
 is ``{"ok": true, "device": {...}}``; any failure raises and the exit
 code is non-zero.  Needs a CUDA device and a checkout of the
@@ -47,12 +72,15 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
+import gc
 import json
 import os
 import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -74,6 +102,7 @@ KERNELS = ("bitunpack", "filter_agg", "block_agg")
 # deepseek_67b.py:20) and the train_4k shape (configs/base.py:36)
 INGEST_VOCAB, INGEST_SEQ, INGEST_BATCH = 102_400, 4096, 256
 INGEST_SEQS, INGEST_STEPS = 4096, 8
+MAINT_OBJECT_BYTES = 1 << 20   # the maintenance path's small objects
 
 
 def _load_port():
@@ -83,17 +112,22 @@ def _load_port():
                          "script; run it from a checkout of the repository")
     sys.path.insert(0, str(root / "src"))
     import repro_torch.core as core
+    from repro_torch import pytree
+    from repro_torch.checkpoint import ckpt
     from repro_torch.core import format as fmt
     from repro_torch.core import pushdown_torch
     from repro_torch.data import corpus, fused_ingest, pipeline
+    from repro_torch.distributed import elastic
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import bitunpack as bu
     from repro_torch.kernels import block_agg as ba
     from repro_torch.kernels import filter_agg as fa
+    from repro_torch.serve import kvcache
     return argparse.Namespace(
         core=core, fmt=fmt, bu=bu, fa=fa, ba=ba, ops=ops, ref=ref,
         build=_build, pushdown=pushdown_torch, corpus=corpus,
-        pipeline=pipeline, ingest=fused_ingest)
+        pipeline=pipeline, ingest=fused_ingest, elastic=elastic,
+        ckpt=ckpt, kvcache=kvcache, pytree=pytree)
 
 
 def card_line() -> str:
@@ -514,21 +548,13 @@ def _bitpack_cols(store, omap, fmt) -> dict[str, set[str]]:
     return out
 
 
-def main_path(P, table: dict[str, np.ndarray]) -> dict:
-    store = P.core.make_store(8, replicas=3)
-    try:
-        return _drive(P.core, P.fmt, P.bu, store, table,
-                      len(table["e_pt"]))
-    finally:
-        store.close()
+def main_path(P, store, table: dict[str, np.ndarray]) -> dict:
+    return _drive(P.core, P.fmt, P.bu, store, table, len(table["e_pt"]))
 
 
 def _drive(core, fmt, bu, store, table, n) -> dict:
     vol = core.GlobalVOL(store)
-    ds = core.LogicalDataset(
-        "events", (core.Column("e_pt", "float32"), core.Column("run", "int32"),
-                   core.Column("hits", "int32")), n, 4096)
-    omap = vol.create(ds, core.PartitionPolicy())
+    omap = vol.create(_events_ds(core, "events", n), core.PartitionPolicy())
     per_obj = len(omap.extents[0])
     r0 = n // 3 + 12_345
     r1 = min(n, r0 + 3 * per_obj // 2)
@@ -788,6 +814,500 @@ def ingest_path(dev, P) -> dict:
 
 
 # --------------------------------------------------------------------------
+# storage planes: Skyhook driver, scan session, faults, maintenance,
+# checkpoint and KV pages
+# --------------------------------------------------------------------------
+
+
+def _sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _events_ds(core, name: str, n: int):
+    return core.LogicalDataset(
+        name, (core.Column("e_pt", "float32"), core.Column("run", "int32"),
+               core.Column("hits", "int32")), n, 4096)
+
+
+def _check_sum_count(what: str, got: dict, table: dict) -> None:
+    """``run < 50`` -> sum and count of ``e_pt``: the count exactly, the
+    float64 sum to rel 1e-9 of numpy's on the generated table."""
+    m = table["run"] < 50
+    want_sum = float(table["e_pt"][m].astype(np.float64).sum())
+    if got["count(e_pt)"] != float(m.sum()):
+        raise AssertionError(f"{what}: count {got['count(e_pt)']} != "
+                             f"{float(m.sum())}")
+    if abs(got["sum(e_pt)"] - want_sum) > 1e-9 * abs(want_sum):
+        raise AssertionError(f"{what}: sum {got['sum(e_pt)']!r} != "
+                             f"{want_sum!r} (rel 1e-9)")
+
+
+def _agg_scan(vol, ds: str):
+    return (vol.scan(ds).filter("run", "<", 50).agg("sum", "e_pt")
+            .agg("count", "e_pt"))
+
+
+def skyhook_path(P, store, table: dict) -> dict:
+    """``SkyhookDriver`` over the main path's table: the filter -> agg and
+    the filter -> project as a ``Query`` and through ``driver.scan``,
+    then the same filter -> agg client-side (no pushdown)."""
+    core = P.core
+    vol = core.GlobalVOL(store)
+    direct_agg, _ = _agg_scan(vol, "events").execute()
+    direct_proj, _ = (vol.scan("events").filter("hits", ">", 20)
+                      .project("hits", "run").execute())
+    drv = core.SkyhookDriver(vol, n_workers=4)
+    q_agg = core.Query("events", filter=("run", "<", 50),
+                       aggregate=(("sum", "e_pt"), ("count", "e_pt")))
+    q_proj = core.Query("events", filter=("hits", ">", 20),
+                        projection=("hits", "run"))
+    runs, walls, stats = {}, {}, {}
+    try:
+        _zero_counts(P)                  # the path's run starts here
+        for name, run in (
+                ("query_agg", lambda: drv.execute(q_agg)),
+                ("query_project", lambda: drv.execute(q_proj)),
+                ("scan_agg", lambda: drv.execute(
+                    _agg_scan(drv, "events"))),
+                ("scan_project", lambda: drv.execute(
+                    drv.scan("events").filter("hits", ">", 20)
+                    .project("hits", "run"))),
+                ("client_side_agg", lambda: drv.execute_client_side(q_agg))):
+            t = time.perf_counter()
+            runs[name], st = run()
+            walls[f"{name}_s"] = time.perf_counter() - t
+            stats[name] = {k: v for k, v in dataclasses.asdict(st).items()
+                           if k != "prune"}
+        launches = _counts(P)            # ... and ends here
+    finally:
+        drv.close()
+    k_up = len(store.cluster.up_osds)
+    pushed = 0
+    for name in ("query_agg", "scan_agg", "query_project", "scan_project"):
+        st = stats[name]
+        if not st["pushdown"] or st["fabric_ops"] > k_up:
+            raise AssertionError(f"skyhook {name}: pushdown "
+                                 f"{st['pushdown']}, {st['fabric_ops']} "
+                                 f"ops > {k_up} OSDs")
+        per_obj = 2 if name.endswith("project") else 1
+        pushed += per_obj * (st["objects_touched"] - st["objects_pruned"])
+    if stats["client_side_agg"]["pushdown"]:
+        raise AssertionError("client-side query reports a pushdown")
+    if launches["bitunpack"] < pushed or launches["filter_agg"] \
+            or launches["block_agg"]:
+        raise AssertionError(f"skyhook launches {launches}, expected at "
+                             f"least {pushed} bitunpack")
+    for name in ("query_agg", "scan_agg", "client_side_agg"):
+        _check_sum_count(f"skyhook {name}", runs[name], table)
+        if runs[name]["count(e_pt)"] != direct_agg["count(e_pt)"]:
+            raise AssertionError(f"skyhook {name}: count differs from "
+                                 f"vol.scan")
+    m = table["hits"] > 20
+    for name in ("query_project", "scan_project"):
+        for k in ("hits", "run"):
+            if not (np.array_equal(runs[name][k], table[k][m])
+                    and np.array_equal(runs[name][k], direct_proj[k])):
+                raise AssertionError(f"skyhook {name}: column {k} differs")
+    rx_push = stats["query_agg"]["client_rx_bytes"]
+    rx_client = stats["client_side_agg"]["client_rx_bytes"]
+    return {**walls, "launches": launches, "stats": stats,
+            "client_rx_pushdown": rx_push, "client_rx_client_side": rx_client,
+            "offload_ratio": rx_client / max(rx_push, 1)}
+
+
+def session_path(P, store, table: dict) -> dict:
+    """16 client threads behind a barrier issue the same filter -> agg
+    through one ``ScanSession``; every result must equal the direct
+    scan's."""
+    core = P.core
+    vol = core.GlobalVOL(store)
+    t = time.perf_counter()
+    direct, _ = _agg_scan(vol, "events").execute()
+    direct_s = time.perf_counter() - t
+    session = core.ScanSession(vol, window_s=0.02)
+    n_clients = 16
+    results: list = [None] * n_clients
+    errors: list = []
+    bar = threading.Barrier(n_clients)
+
+    def client(i):
+        try:
+            bar.wait(timeout=60)
+            results[i], _ = session.execute(_agg_scan(vol, "events"))
+        except BaseException as e:  # noqa: BLE001 -- raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(n_clients)]
+    _zero_counts(P)                      # the path's run starts here
+    t = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    wall = time.perf_counter() - t
+    launches = _counts(P)                # ... and ends here
+    if any(th.is_alive() for th in threads):
+        raise AssertionError("session: a client thread did not finish")
+    if errors:
+        raise errors[0]
+    if any(r != direct for r in results):
+        raise AssertionError("session: a result differs from the direct "
+                             "scan's")
+    _check_sum_count("session", direct, table)
+    st = dict(session.stats)
+    if st["admitted"] != n_clients or st["deduped"] < 1 \
+            or st["executed"] + st["deduped"] != n_clients:
+        raise AssertionError(f"session stats {st}")
+    if not launches["bitunpack"] > 0:
+        raise AssertionError(f"session launches {launches}")
+    return {"clients": n_clients, "window_s": 0.02, "wall_s": wall,
+            "direct_scan_s": direct_s, "stats": st, "launches": launches}
+
+
+def faults_path(P, store, table: dict, seed: int) -> dict:
+    """A fault campaign over the table's objects (8 bit flips, 2 torn
+    writes on distinct copies): the filter -> agg stays exact, scrub
+    finds and heals exactly the injected copies, a second scrub finds
+    none; then transient failures on one OSD during a query."""
+    core = P.core
+    vol = core.GlobalVOL(store)
+    names = vol.open("events").object_names()
+    fi = core.FaultInjector(store)
+    detected0 = store.fabric.corruptions_detected
+    placed = fi.campaign(names, flips=8, torn=2, seed=seed)
+    if len(placed) != 10:
+        raise AssertionError(f"campaign placed {len(placed)} of 10")
+    walls = {}
+    _zero_counts(P)                      # the path's run starts here
+    t = time.perf_counter()
+    agg, _ = _agg_scan(vol, "events").execute()
+    walls["filter_agg_under_faults_s"] = time.perf_counter() - t
+    read_detected = store.fabric.corruptions_detected - detected0
+    t = time.perf_counter()
+    first = store.scrub()
+    walls["scrub_s"] = time.perf_counter() - t
+    detected = store.fabric.corruptions_detected - detected0
+    t = time.perf_counter()
+    second = store.scrub()
+    walls["second_scrub_s"] = time.perf_counter() - t
+    victim = store.cluster.up_osds[0]
+    retries0 = store.fabric.retries
+    fi.transient_failures(victim, 3)
+    t = time.perf_counter()
+    agg2, _ = _agg_scan(vol, "events").execute()
+    walls["filter_agg_transient_s"] = time.perf_counter() - t
+    retries = store.fabric.retries - retries0
+    launches = _counts(P)                # ... and ends here
+    fi.clear()
+    _check_sum_count("faults: filter_agg under the campaign", agg, table)
+    _check_sum_count("faults: filter_agg under transient failures", agg2,
+                     table)
+    if detected != fi.corruptions_injected or first["lost"] != ():
+        raise AssertionError(f"faults: {detected} corruptions detected of "
+                             f"{fi.corruptions_injected} injected; lost "
+                             f"{first['lost']}")
+    if second["corrupt_copies"] or second["healed_copies"]:
+        raise AssertionError(f"faults: second scrub {second}")
+    if not retries > 0:
+        raise AssertionError("faults: no retry under transient failures")
+    if not launches["bitunpack"] > 0:
+        raise AssertionError(f"faults launches {launches}")
+    return {**walls, "injected": fi.corruptions_injected,
+            "detected_by_reads": read_detected, "detected": detected,
+            "scrub": {k: first[k] for k in ("objects_scrubbed",
+                                            "corrupt_copies",
+                                            "healed_copies")},
+            "second_scrub_corrupt": second["corrupt_copies"],
+            "transient_osd": victim, "retries": retries,
+            "launches": launches}
+
+
+def maintenance_path(P, dev, rows: int, seed: int) -> dict:
+    """A second dataset of the event table's schema in 1 MiB objects,
+    compacted by the default (8 MiB) policy, scrubbed, rebalanced and
+    aged by the four daemons while a client thread loops the filter ->
+    agg; then one OSD more, a topology change and a rebalance, and the
+    query again."""
+    core = P.core
+    ev = make_events(dev, rows, seed + 1)
+    table = {k: v.cpu().numpy() for k, v in ev.items()}
+    del ev
+    store = core.make_store(8, replicas=3)
+    try:
+        vol = core.GlobalVOL(store)
+        omap = vol.create(_events_ds(core, "events2", rows),
+                          core.PartitionPolicy(
+                              target_object_bytes=MAINT_OBJECT_BYTES))
+        t = time.perf_counter()
+        vol.write(omap, table)
+        write_s = time.perf_counter() - t
+        n_before = omap.n_objects
+        plane = core.MaintenancePlane(store)
+        stop = threading.Event()
+        seen, errors = [], []
+
+        def client():
+            try:
+                while not stop.is_set():
+                    r, _ = _agg_scan(vol, "events2").execute()
+                    _check_sum_count("maintenance: live filter_agg", r,
+                                     table)
+                    seen.append(r)
+            except BaseException as e:  # noqa: BLE001 -- raised below
+                errors.append(e)
+
+        reader = threading.Thread(target=client, name="live-scan")
+        _zero_counts(P)                  # the path's run starts here
+        t0 = time.perf_counter()
+        plane.start()
+        reader.start()
+        try:
+            # compaction is done when three seconds pass without a run
+            prev, t_last = -1, time.perf_counter()
+            while time.perf_counter() - t_last < 3.0:
+                if errors:
+                    break
+                if time.perf_counter() - t0 > 600:
+                    raise AssertionError("maintenance: compaction did not "
+                                         "settle")
+                if plane.compact_runs != prev:
+                    prev, t_last = plane.compact_runs, time.perf_counter()
+                time.sleep(0.05)
+            # paused, the daemon finishes its step; any run still left
+            # is folded here, with the client still scanning
+            plane.pause()
+            extra = 0
+            while plane.compact_step() is not None:
+                extra += 1
+            compact_s = (time.perf_counter() if extra else t_last) - t0
+            stop.set()
+            reader.join(timeout=600)
+            daemons_s = time.perf_counter() - t0
+            if reader.is_alive():
+                raise AssertionError("maintenance: the client thread did "
+                                     "not stop")
+            if errors:
+                raise errors[0]
+            n_after = vol.open("events2").n_objects
+            t = time.perf_counter()
+            resize = P.elastic.apply_storage_resize(store, add=("osd.8",))
+            plane.note_topology_change()
+            moved = 0
+            while True:
+                got = plane.rebalance_step()
+                if not got["objects"]:
+                    break
+                moved += got["bytes"]
+            resize_s = time.perf_counter() - t
+            t = time.perf_counter()
+            again, _ = _agg_scan(vol, "events2").execute()
+            requery_s = time.perf_counter() - t
+        finally:
+            stop.set()
+            plane.stop()
+        launches = _counts(P)            # ... and ends here
+        _check_sum_count("maintenance: after the resize", again, table)
+        stats = plane.stats()
+        if stats["errors"]:
+            raise AssertionError(f"maintenance daemon errors: "
+                                 f"{stats['errors']}")
+        if not seen:
+            raise AssertionError("maintenance: no live query completed")
+        if n_after * 4 > n_before:
+            raise AssertionError(f"maintenance: compaction left {n_after} "
+                                 f"of {n_before} objects")
+        if resize["objects_lost"]:
+            raise AssertionError(f"resize lost {resize['objects_lost']}")
+        if not launches["bitunpack"] > 0:
+            raise AssertionError(f"maintenance launches {launches}")
+        f = store.fabric.snapshot()
+        return {"rows": rows, "objects_before": n_before,
+                "objects_after": n_after, "write_s": write_s,
+                "compact_s": compact_s, "daemons_s": daemons_s,
+                "live_queries": len(seen), "compact_runs":
+                stats["compact_runs"], "scrub_objects": stats["scrub_objects"],
+                "scrub_rounds": stats["scrub_rounds"],
+                "dead_pending": stats["dead_pending"],
+                "compaction_bytes": f["compaction_bytes"],
+                "resize_moved_objects": resize["objects_moved"],
+                "rebalance_bytes": moved, "resize_s": resize_s,
+                "requery_s": requery_s, "launches": launches}
+    finally:
+        store.close()
+
+
+# one deepseek_67b decoder layer (src/repro/configs/deepseek_67b.py:14-19:
+# d_model 8192, 64 heads of 128, 8 KV heads, d_ff 22016)
+LAYER_SHAPES = {"wq": (8192, 8192), "wk": (8192, 1024), "wv": (8192, 1024),
+                "wo": (8192, 8192), "w_gate": (8192, 22016),
+                "w_up": (8192, 22016), "w_down": (22016, 8192),
+                "attn_norm": (8192,), "mlp_norm": (8192,)}
+# a dense KV cache at deepseek_67b's widths: 95 layers, one session of
+# 4096 tokens, 8 KV heads of 128 (serve/engine.py parks it on axis 2)
+KV_SHAPE = (95, 1, 4096, 8, 128)
+
+
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.dtype != b.dtype or a.shape != b.shape or a.device != b.device:
+        return False
+    if a.dtype.is_floating_point:
+        width = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        a, b = (x.view(width[x.element_size()]) for x in (a, b))
+    return bool(torch.equal(a, b))
+
+
+def checkpoint_path(P, dev, seed: int) -> dict:
+    """``CheckpointManager(every_steps=1, keep=2)`` saves three steps of
+    a bf16 state tree on the card into a fresh 8-OSD, 3-replica store,
+    then restores the latest onto the card."""
+    ckpt, pytree = P.ckpt, P.pytree
+    steps = 3
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    state = {"params": {k: torch.randn(s, generator=gen, device=dev,
+                                       dtype=torch.bfloat16)
+                        for k, s in LAYER_SHAPES.items()},
+             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    nbytes = sum(t.nbytes for _, t in pytree.flatten_with_keys(state))
+    store = P.core.make_store(8, replicas=3)
+    try:
+        mgr = ckpt.CheckpointManager(store, every_steps=1, keep=2)
+        snap_s, save_s = [], []
+        for step in range(1, steps + 1):
+            state["step"].fill_(step)
+            _sync(dev)
+            t = time.perf_counter()
+            mgr.maybe_save(state, step)
+            snap_s.append(time.perf_counter() - t)
+            if step < steps:             # the next train step mutates
+                for t_ in state["params"].values():
+                    t_.mul_(-1)
+            mgr.wait()
+            save_s.append(time.perf_counter() - t)
+        like = pytree.map_with_keys(lambda _k, x: torch.empty_like(x), state)
+        _sync(dev)
+        t = time.perf_counter()
+        got, manifest = ckpt.restore(store, like)
+        _sync(dev)
+        restore_s = time.perf_counter() - t
+        if manifest["step"] != steps:
+            raise AssertionError(f"restored step {manifest['step']}")
+        for (k, a), (_, b) in zip(pytree.flatten_with_keys(got),
+                                  pytree.flatten_with_keys(state)):
+            if not _bits_equal(a, b):
+                raise AssertionError(f"checkpoint leaf {k} differs")
+        kept = sorted(int(n.split("step-")[1].split("/")[0])
+                      for n in store.list_objects("ckpt/")
+                      if n.endswith(".manifest"))
+        if kept != [steps - 1, steps] or \
+                store.list_objects("ckpt/train/step-1/"):
+            raise AssertionError(f"retention kept steps {kept}")
+        return {"values": sum(t.numel() for _, t in
+                              pytree.flatten_with_keys(state)),
+                "bytes": nbytes, "steps": steps, "kept": kept,
+                "objects": len(store.list_objects("ckpt/")),
+                "snapshot_s": snap_s, "save_s": save_s,
+                "save_GB_per_s": [nbytes / s / 1e9 for s in save_s],
+                "restore_s": restore_s,
+                "restore_GB_per_s": nbytes / restore_s / 1e9}
+    finally:
+        store.close()
+
+
+def kv_path(P, dev, seed: int) -> dict:
+    """A dense KV cache on the card through ``cache_to_objects`` with the
+    serving engine's sequence axes, then back onto the card through
+    ``objects_to_cache``."""
+    kvcache, pytree = P.kvcache, P.pytree
+    shape = KV_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    cache = {"k": torch.randn(shape, generator=gen, device=dev,
+                              dtype=torch.bfloat16),
+             "v": torch.randn(shape, generator=gen, device=dev,
+                              dtype=torch.bfloat16),
+             "pos": torch.tensor(shape[2] - 1, dtype=torch.int32,
+                                 device=dev)}
+    seq_axes = {k: 2 for k, _ in pytree.flatten_with_keys(cache)
+                if any(t in k for t in ("'k'", "'v'", "'ckv'", "'krope'"))}
+    nbytes = sum(t.nbytes for _, t in pytree.flatten_with_keys(cache))
+    store = P.core.make_store(8, replicas=3)
+    try:
+        _sync(dev)
+        t = time.perf_counter()
+        manifest = kvcache.cache_to_objects(store, cache, "s0",
+                                            seq_axes=seq_axes)
+        park_s = time.perf_counter() - t
+        like = pytree.map_with_keys(lambda _k, x: torch.empty_like(x), cache)
+        _sync(dev)
+        t = time.perf_counter()
+        back = kvcache.objects_to_cache(store, like, "s0")
+        _sync(dev)
+        resume_s = time.perf_counter() - t
+        pages = {k: len(m["pages"]) for k, m in manifest["leaves"].items()}
+        want = -(-shape[2] // kvcache.PAGE_TOKENS)
+        if pages != {"['k']": want, "['pos']": 1, "['v']": want}:
+            raise AssertionError(f"KV pages per leaf {pages}")
+        for (k, a), (_, b) in zip(pytree.flatten_with_keys(back),
+                                  pytree.flatten_with_keys(cache)):
+            if not _bits_equal(a, b):
+                raise AssertionError(f"KV leaf {k} differs")
+        return {"shape": list(shape), "bytes": nbytes, "pages": pages,
+                "park_s": park_s, "park_GB_per_s": nbytes / park_s / 1e9,
+                "resume_s": resume_s,
+                "resume_GB_per_s": nbytes / resume_s / 1e9}
+    finally:
+        store.close()
+
+
+PLANE_PATHS = ("skyhook", "session", "faults", "maintenance")
+
+
+def table_planes(P, store, table: dict, seed: int, card: str) -> dict:
+    """The planes that run on the main path's store and table."""
+    sky = skyhook_path(P, store, table)
+    print("skyhook: " + json.dumps(sky), flush=True)
+    print(f"skyhook: filter -> agg pushed down {sky['query_agg_s']:.4f} s, "
+          f"client_rx {sky['client_rx_pushdown']} B; client-side "
+          f"{sky['client_side_agg_s']:.4f} s, client_rx "
+          f"{sky['client_rx_client_side']} B (offload ratio "
+          f"{sky['offload_ratio']:.1f}x)  [{card}]", flush=True)
+    ses = session_path(P, store, table)
+    print("session: " + json.dumps(ses), flush=True)
+    print(f"session: {ses['clients']} clients {ses['wall_s']:.4f} s, "
+          f"executed {ses['stats']['executed']} of {ses['stats']['admitted']}"
+          f" admitted (deduped {ses['stats']['deduped']}); one direct scan "
+          f"{ses['direct_scan_s']:.4f} s  [{card}]", flush=True)
+    flt = faults_path(P, store, table, seed)
+    print("faults: " + json.dumps(flt), flush=True)
+    return {"skyhook": sky, "session": ses, "faults": flt}
+
+
+def fresh_planes(P, dev, seed: int, card: str, maint_rows: int) -> dict:
+    """The planes that run in stores of their own, one after another."""
+    mnt = maintenance_path(P, dev, maint_rows, seed)
+    print("maintenance: " + json.dumps(mnt), flush=True)
+    print(f"maintenance: {mnt['objects_before']} -> {mnt['objects_after']} "
+          f"objects in {mnt['compact_s']:.3f} s under "
+          f"{mnt['live_queries']} live queries  [{card}]", flush=True)
+    gc.collect()
+    ck = checkpoint_path(P, dev, seed)
+    print("checkpoint: " + json.dumps(ck), flush=True)
+    print(f"checkpoint: {ck['bytes']} B per step, save "
+          + ", ".join(f"{s:.3f} s ({r:.3f} GB/s)"
+                      for s, r in zip(ck["save_s"], ck["save_GB_per_s"]))
+          + f"; restore {ck['restore_s']:.3f} s "
+          f"({ck['restore_GB_per_s']:.3f} GB/s)  [{card}]", flush=True)
+    gc.collect()
+    kv = kv_path(P, dev, seed)
+    print("kv pages: " + json.dumps(kv), flush=True)
+    print(f"kv pages: {kv['bytes']} B, park {kv['park_s']:.3f} s "
+          f"({kv['park_GB_per_s']:.3f} GB/s), resume {kv['resume_s']:.3f} s "
+          f"({kv['resume_GB_per_s']:.3f} GB/s)  [{card}]", flush=True)
+    return {"maintenance": mnt, "checkpoint": ck, "kv": kv}
+
+
+# --------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -835,11 +1355,9 @@ def main(argv=None) -> int:
           f"{ba_err!r} ({time.perf_counter() - t:.1f}s)", flush=True)
 
     ds_rows = 1 << args.rows_log2
-    obj_rows = len(P.core.plan_partition(P.core.LogicalDataset(
-        "events", (P.core.Column("e_pt", "float32"),
-                   P.core.Column("run", "int32"),
-                   P.core.Column("hits", "int32")),
-        ds_rows, 4096), P.core.PartitionPolicy()).extents[0])
+    obj_rows = len(P.core.plan_partition(
+        _events_ds(P.core, "events", ds_rows),
+        P.core.PartitionPolicy()).extents[0])
     obj_bits = 7                                   # run in [0, 100)
     rng = np.random.default_rng(2)
     obj_words = _words_tensor(fmt.bitpack_encode(
@@ -880,46 +1398,64 @@ def main(argv=None) -> int:
     ev = make_events(dev, ds_rows, args.seed)
     table = {k: v.cpu().numpy() for k, v in ev.items()}
     gen_s = time.perf_counter() - t
-    res = main_path(P, table)
-    res["generate_s"] = gen_s
-    if args.rows_log2 < FULL_ROWS_LOG2:
-        print(f"reduced: main path at 2^{args.rows_log2} rows of the "
-              f"paper's 2^{FULL_ROWS_LOG2}")
-    print("main path: " + json.dumps(res), flush=True)
+    store = P.core.make_store(8, replicas=3)
+    try:
+        res = main_path(P, store, table)
+        res["generate_s"] = gen_s
+        if args.rows_log2 < FULL_ROWS_LOG2:
+            print(f"reduced: main path at 2^{args.rows_log2} rows of the "
+                  f"paper's 2^{FULL_ROWS_LOG2}")
+        print("main path: " + json.dumps(res), flush=True)
 
-    pd = pushdown_path(P, ev, table, res)
-    print("device pushdown: " + json.dumps(pd), flush=True)
-    mask = ev["hits"] > 20
-    f32, i32 = torch.float32, torch.int32
-    at_fa = agg_timing(
-        lambda: P.fa.filter_agg(ev["e_pt"], ev["run"], "<", 50),
-        lambda: P.fa.filter_agg_plain(ev["e_pt"], ev["run"], "<", 50),
-        ds_rows, (f32, i32), 20)
-    at_ba = agg_timing(lambda: P.ba.block_agg(ev["e_pt"], mask),
-                       lambda: P.ba.block_agg_plain(ev["e_pt"], mask),
-                       ds_rows, (f32, torch.bool), 20)
-    for name, what, r in (("filter_agg", "float32 values, int32 filter", at_fa),
-                          ("block_agg", "float32 values, bool mask", at_ba)):
-        print(f"kernel time {name} [{what}] n={r['n']}: {timing_line(r)}"
-              f"  [{card}]", flush=True)
-    del ev, mask, table
+        pd = pushdown_path(P, ev, table, res)
+        print("device pushdown: " + json.dumps(pd), flush=True)
+        mask = ev["hits"] > 20
+        f32, i32 = torch.float32, torch.int32
+        at_fa = agg_timing(
+            lambda: P.fa.filter_agg(ev["e_pt"], ev["run"], "<", 50),
+            lambda: P.fa.filter_agg_plain(ev["e_pt"], ev["run"], "<", 50),
+            ds_rows, (f32, i32), 20)
+        at_ba = agg_timing(lambda: P.ba.block_agg(ev["e_pt"], mask),
+                           lambda: P.ba.block_agg_plain(ev["e_pt"], mask),
+                           ds_rows, (f32, torch.bool), 20)
+        for name, what, r in (
+                ("filter_agg", "float32 values, int32 filter", at_fa),
+                ("block_agg", "float32 values, bool mask", at_ba)):
+            print(f"kernel time {name} [{what}] n={r['n']}: "
+                  f"{timing_line(r)}  [{card}]", flush=True)
+        del ev, mask
 
-    ing = ingest_path(dev, P)
-    print(f"reduced: corpus of {INGEST_SEQS // INGEST_BATCH} steps (a "
-          f"training corpus is larger; each step is the full train_4k "
-          f"batch)")
-    print("packed ingest: " + json.dumps(ing), flush=True)
-    print(f"packed ingest: {ing['ms_per_step']:.3f} ms per step, client_rx "
-          f"packed {ing['client_rx_packed']} B vs plain "
-          f"{ing['client_rx_plain']} B over {INGEST_STEPS} steps, "
-          f"bitunpack launches {ing['launches']['bitunpack']}  [{card}]",
-          flush=True)
+        ing = ingest_path(dev, P)
+        print(f"reduced: corpus of {INGEST_SEQS // INGEST_BATCH} steps (a "
+              f"training corpus is larger; each step is the full train_4k "
+              f"batch)")
+        print("packed ingest: " + json.dumps(ing), flush=True)
+        print(f"packed ingest: {ing['ms_per_step']:.3f} ms per step, "
+              f"client_rx packed {ing['client_rx_packed']} B vs plain "
+              f"{ing['client_rx_plain']} B over {INGEST_STEPS} steps, "
+              f"bitunpack launches {ing['launches']['bitunpack']}  [{card}]",
+              flush=True)
+        planes = table_planes(P, store, table, args.seed, card)
+    finally:
+        store.close()
+    del store, table
+    gc.collect()
+    planes.update(fresh_planes(P, dev, args.seed, card,
+                               maint_rows=ds_rows))
 
-    launches = {"bitunpack": res["launches"] + ing["launches"]["bitunpack"],
+    scans = {"scan": res["launches"],
+             "packed ingest": ing["launches"]["bitunpack"],
+             **{name: planes[name]["launches"]["bitunpack"]
+                for name in PLANE_PATHS if "launches" in planes[name]}}
+    launches = {"bitunpack": sum(scans.values()),
                 "filter_agg": pd["launches"]["filter_agg"],
                 "block_agg": pd["launches"]["block_agg"]}
     print(f"launches per path: scan bitunpack {res['launches']}; device "
-          f"pushdown {pd['launches']}; packed ingest {ing['launches']}")
+          f"pushdown {pd['launches']}; packed ingest {ing['launches']}; "
+          + "; ".join(f"{name} {planes[name]['launches']}"
+                      for name in PLANE_PATHS
+                      if "launches" in planes[name])
+          + "; checkpoint and KV pages launch no kernel")
     print(f"card: {card}")
     rows = [("bitunpack", "src/repro/kernels/bitunpack.py:52", bu_err, at_obj),
             ("filter_agg", "src/repro/kernels/filter_agg.py:46", fa_err,

@@ -1,2 +1,2 @@
 """Distributed layer of the port: the mesh rules the device pushdown
-reads (``sharding``)."""
+reads (``sharding``) and cluster resize planning (``elastic``)."""

@@ -2,6 +2,7 @@
 package, and its default decode runs on the card or raises."""
 
 import ast
+import importlib
 import os
 import subprocess
 import sys
@@ -32,7 +33,12 @@ def test_import_pulls_in_no_jax_and_no_reference():
             "repro_torch.kernels.block_agg",
             "repro_torch.distributed.sharding", "repro_torch.data.corpus",
             "repro_torch.data.pipeline",
-            "repro_torch.data.fused_ingest"} <= set(mods)
+            "repro_torch.data.fused_ingest", "repro_torch.core.faults",
+            "repro_torch.core.session", "repro_torch.core.skyhook",
+            "repro_torch.core.maintenance",
+            "repro_torch.distributed.elastic", "repro_torch.pytree",
+            "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt",
+            "repro_torch.serve", "repro_torch.serve.kvcache"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -44,6 +50,26 @@ def test_import_pulls_in_no_jax_and_no_reference():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("pkg", ["core", "checkpoint"])
+def test_exports_match_the_reference(pkg):
+    """Every public name the reference package exports, the port
+    exports too (``repro.checkpoint`` needs JAX, so it is read, not
+    imported)."""
+    import inspect
+
+    port = importlib.import_module(f"repro_torch.{pkg}")
+    if pkg == "core":
+        import repro.core as ref
+        names = {n for n in dir(ref) if not n.startswith("_")
+                 and not inspect.ismodule(getattr(ref, n))}
+    else:
+        init = ROOT / "src" / "repro" / "checkpoint" / "__init__.py"
+        names = {a.asname or a.name
+                 for node in ast.walk(ast.parse(init.read_text()))
+                 if isinstance(node, ast.ImportFrom) for a in node.names}
+    assert names and names <= set(dir(port))
 
 
 def _imported_roots(path: Path):
