@@ -56,10 +56,24 @@
 12. KV pages: a dense (95, 1, 4096, 8, 128) bf16 K and V cache on the
     card through ``cache_to_objects`` (2048-token pages on axis 2) and
     back through ``objects_to_cache``, bit-equal.
+13. Serve: yi_9b at its published widths and depth (48 layers, d_model
+    4096, 32 heads / 4 KV heads of 128, d_ff 11008, vocab 64000), bf16,
+    random weights from ``--seed``, through ``ServeEngine.generate``: 8
+    requests of 256-1024 prompt tokens, 32 new tokens each, a 4096-slot
+    cache (3.22 GB) parked to a fresh store and resumed bit-equal; a
+    2^26-row request log (``examples/serve_pushdown.py``'s columns) in
+    another fresh store, one filter -> agg per request from 8 threads
+    through ``engine.analytics`` (a ``ScanSession``), equal to numpy.
+    Then the prefill/decode invariant of ``tests/test_models.py``
+    (prefill of 512 tokens and 512 teacher-forced decode steps against
+    prefill of all 1024, batch 2) at full width and depth in float32,
+    held to rtol/atol 2e-2; the same check in bf16 (448 + 64 against
+    512) is printed without a gate.
 
 Each path runs with the kernels' launch counts set to 0 just before it
 and read just after; every kernel of a path must have launched (the
-checkpoint and KV paths decode nothing and launch no kernel).  The
+checkpoint and KV paths decode nothing and launch no kernel; the serve
+path launches ``bitunpack`` in its analytics scans).  The
 line before the last two is the ``kernels`` JSON object; the last line
 is ``{"ok": true, "device": {...}}``; any failure raises and the exit
 code is non-zero.  Needs a CUDA device and a checkout of the
@@ -103,6 +117,17 @@ KERNELS = ("bitunpack", "filter_agg", "block_agg")
 INGEST_VOCAB, INGEST_SEQ, INGEST_BATCH = 102_400, 4096, 256
 INGEST_SEQS, INGEST_STEPS = 4096, 8
 MAINT_OBJECT_BYTES = 1 << 20   # the maintenance path's small objects
+# serve: yi_9b (src/repro/configs/yi_9b.py:14-29) with 8 requests of
+# 256-1024 prompt tokens; the longest is exactly 1024, because the
+# reference's flash attention needs a padded prompt longer than 512
+# tokens to be a multiple of 512 (attention.py:114)
+SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT = "yi_9b", 8, (256, 1024)
+SERVE_MAX_NEW, SERVE_MAX_SEQ = 32, 4096
+SERVE_LOG_ROWS_LOG2 = 26       # the request log's rows
+SERVE_CLIENTS = 8
+# the invariant of tests/test_models.py:57-86 at full size: (prefill,
+# decode steps) per dtype; float32 is held to the reference's 2e-2
+INVARIANT_F32, INVARIANT_BF16, INVARIANT_TOL = (512, 512), (448, 64), 2e-2
 
 
 def _load_port():
@@ -112,7 +137,7 @@ def _load_port():
                          "script; run it from a checkout of the repository")
     sys.path.insert(0, str(root / "src"))
     import repro_torch.core as core
-    from repro_torch import pytree
+    from repro_torch import configs, pytree
     from repro_torch.checkpoint import ckpt
     from repro_torch.core import format as fmt
     from repro_torch.core import pushdown_torch
@@ -122,12 +147,14 @@ def _load_port():
     from repro_torch.kernels import bitunpack as bu
     from repro_torch.kernels import block_agg as ba
     from repro_torch.kernels import filter_agg as fa
-    from repro_torch.serve import kvcache
+    from repro_torch.models import archs
+    from repro_torch.serve import engine, kvcache
     return argparse.Namespace(
         core=core, fmt=fmt, bu=bu, fa=fa, ba=ba, ops=ops, ref=ref,
         build=_build, pushdown=pushdown_torch, corpus=corpus,
         pipeline=pipeline, ingest=fused_ingest, elastic=elastic,
-        ckpt=ckpt, kvcache=kvcache, pytree=pytree)
+        ckpt=ckpt, kvcache=kvcache, pytree=pytree, configs=configs,
+        archs=archs, engine=engine)
 
 
 def card_line() -> str:
@@ -157,11 +184,12 @@ def cuda_ms(fn, iters: int) -> float:
     return a.elapsed_time(b) / iters
 
 
-def traced(fn) -> tuple[float, float, int]:
-    """(device busy ms, host wall s, device events) of one call of
-    ``fn``: the summed durations of the kernels and copies
+def traced(fn) -> tuple[float, float, int, list]:
+    """(device busy ms, host wall s, device events, top kernels) of one
+    call of ``fn``: the summed durations of the kernels and copies
     ``torch.profiler`` saw on the card, the host clock around the call
-    and a synchronise, and how many device events the profiler kept."""
+    and a synchronise, how many device events the profiler kept, and
+    the six names with the most device time as (name, ms, events)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -173,7 +201,13 @@ def traced(fn) -> tuple[float, float, int]:
     dev_events = [e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.time_range.elapsed_us() for e in dev_events)
-    return busy_us / 1e3, wall, len(dev_events)
+    by_name: dict[str, list] = collections.defaultdict(lambda: [0.0, 0])
+    for e in dev_events:
+        by_name[e.name][0] += e.time_range.elapsed_us() / 1e3
+        by_name[e.name][1] += 1
+    top = sorted(((n[:80], ms, k) for n, (ms, k) in by_name.items()),
+                 key=lambda x: -x[1])[:6]
+    return busy_us / 1e3, wall, len(dev_events), top
 
 
 def device_ms(fn, iters: int) -> tuple[float, float]:
@@ -188,7 +222,7 @@ def device_ms(fn, iters: int) -> tuple[float, float]:
         for _ in range(iters):
             fn()
 
-    busy, _, events = traced(loop)
+    busy, _, events, _ = traced(loop)
     if busy <= 0:
         raise AssertionError("torch.profiler saw no device time")
     return busy / iters, events / iters
@@ -652,7 +686,7 @@ def _drive(core, fmt, bu, store, table, n) -> dict:
         if not np.array_equal(rows_np[k], rows[k]):
             raise AssertionError(f"numpy decode rows: {k} differs")
     # one more filter -> agg under the profiler: how busy the card is
-    busy_ms, traced_s, _ = traced(q_agg)
+    busy_ms, traced_s, _, _ = traced(q_agg)
     f = store.fabric.snapshot()
     return {"rows": n, "objects": n_obj, "rows_per_object": per_obj,
             **walls, "launches": launches,
@@ -916,6 +950,35 @@ def skyhook_path(P, store, table: dict) -> dict:
             "offload_ratio": rx_client / max(rx_push, 1)}
 
 
+def _run_clients(n: int, fn) -> tuple[list, float]:
+    """``fn(i)`` for i in range(n) on ``n`` threads released together by
+    a barrier: the results in order and the wall from the first start to
+    the last join.  A client's exception is raised here."""
+    results: list = [None] * n
+    errors: list = []
+    bar = threading.Barrier(n)
+
+    def client(i):
+        try:
+            bar.wait(timeout=60)
+            results[i] = fn(i)
+        except BaseException as e:  # noqa: BLE001 -- raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(n)]
+    t = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    wall = time.perf_counter() - t
+    if any(th.is_alive() for th in threads):
+        raise AssertionError("a client thread did not finish")
+    if errors:
+        raise errors[0]
+    return results, wall
+
+
 def session_path(P, store, table: dict) -> dict:
     """16 client threads behind a barrier issue the same filter -> agg
     through one ``ScanSession``; every result must equal the direct
@@ -927,31 +990,10 @@ def session_path(P, store, table: dict) -> dict:
     direct_s = time.perf_counter() - t
     session = core.ScanSession(vol, window_s=0.02)
     n_clients = 16
-    results: list = [None] * n_clients
-    errors: list = []
-    bar = threading.Barrier(n_clients)
-
-    def client(i):
-        try:
-            bar.wait(timeout=60)
-            results[i], _ = session.execute(_agg_scan(vol, "events"))
-        except BaseException as e:  # noqa: BLE001 -- raised below
-            errors.append(e)
-
-    threads = [threading.Thread(target=client, args=(i,))
-               for i in range(n_clients)]
     _zero_counts(P)                      # the path's run starts here
-    t = time.perf_counter()
-    for th in threads:
-        th.start()
-    for th in threads:
-        th.join(timeout=600)
-    wall = time.perf_counter() - t
+    results, wall = _run_clients(
+        n_clients, lambda i: session.execute(_agg_scan(vol, "events"))[0])
     launches = _counts(P)                # ... and ends here
-    if any(th.is_alive() for th in threads):
-        raise AssertionError("session: a client thread did not finish")
-    if errors:
-        raise errors[0]
     if any(r != direct for r in results):
         raise AssertionError("session: a result differs from the direct "
                              "scan's")
@@ -1260,7 +1302,7 @@ def kv_path(P, dev, seed: int) -> dict:
         store.close()
 
 
-PLANE_PATHS = ("skyhook", "session", "faults", "maintenance")
+PLANE_PATHS = ("skyhook", "session", "faults", "maintenance", "serve")
 
 
 def table_planes(P, store, table: dict, seed: int, card: str) -> dict:
@@ -1305,6 +1347,259 @@ def fresh_planes(P, dev, seed: int, card: str, maint_rows: int) -> dict:
           f"({kv['park_GB_per_s']:.3f} GB/s), resume {kv['resume_s']:.3f} s "
           f"({kv['resume_GB_per_s']:.3f} GB/s)  [{card}]", flush=True)
     return {"maintenance": mnt, "checkpoint": ck, "kv": kv}
+
+
+# --------------------------------------------------------------------------
+# serve: yi_9b through the engine, KV session, analytics, invariant
+# --------------------------------------------------------------------------
+
+
+def _timed(fn, dev, walls: list):
+    """``fn`` with the wall of each call, the card synchronised around
+    it, appended to ``walls``."""
+    def run(*args):
+        _sync(dev)
+        t = time.perf_counter()
+        out = fn(*args)
+        _sync(dev)
+        walls.append(time.perf_counter() - t)
+        if not bool(torch.isfinite(out[0]).all()):
+            raise AssertionError("serve: non-finite logits")
+        return out
+    return run
+
+
+def _serve_requests(P, cfg, rng) -> list:
+    lens = [SERVE_PROMPT[1]] + sorted(
+        int(n) for n in rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1,
+                                     SERVE_BATCH - 1))
+    return [P.engine.Request(prompt=rng.integers(
+        1, cfg.vocab_size, n).astype(np.int32), max_new=SERVE_MAX_NEW)
+        for n in lens]
+
+
+def _request_log(dev, n: int, seed: int) -> dict[str, np.ndarray]:
+    """``examples/serve_pushdown.py``'s request log, generated on the
+    card: latency_ms float32 gamma(3, 12), tokens_out int32 in [1, 512),
+    model_id int32 in [0, 4)."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    gamma = torch.distributions.Gamma(torch.tensor(3.0, device=dev),
+                                      torch.tensor(1 / 12.0, device=dev))
+    torch.manual_seed(seed + 3)
+    table = {"latency_ms": gamma.sample((n,)).to(torch.float32),
+             "tokens_out": torch.randint(1, 512, (n,), generator=gen,
+                                         device=dev, dtype=torch.int32),
+             "model_id": torch.randint(0, 4, (n,), generator=gen,
+                                       device=dev, dtype=torch.int32)}
+    return {k: v.cpu().numpy() for k, v in table.items()}
+
+
+def _analytics(P, engine, dev, seed: int) -> dict:
+    """The request log in a fresh 8-OSD, 3-replica store, one filter ->
+    agg per request from ``SERVE_CLIENTS`` threads through the engine's
+    analytics session; every result equal to numpy."""
+    core = P.core
+    n = 1 << SERVE_LOG_ROWS_LOG2
+    t = time.perf_counter()
+    table = _request_log(dev, n, seed)
+    gen_s = time.perf_counter() - t
+    store = core.make_store(8, replicas=3)
+    try:
+        vol = core.GlobalVOL(store)
+        omap = vol.create(core.LogicalDataset(
+            "reqlog", (core.Column("latency_ms", "float32"),
+                       core.Column("tokens_out", "int32"),
+                       core.Column("model_id", "int32")), n, 4096),
+            core.PartitionPolicy())
+        t = time.perf_counter()
+        vol.write(omap, table)
+        write_s = time.perf_counter() - t
+        packed = _bitpack_cols(store, omap, P.fmt)
+        if any(c != {"tokens_out", "model_id"} for c in packed.values()):
+            raise AssertionError(f"request log bitpack columns {packed}")
+        session = engine.attach_analytics(vol, window_s=0.02)
+
+        def request(_i):                 # each request builds its scan
+            return engine.analytics(
+                vol.scan("reqlog").filter("latency_ms", ">", 100.0)
+                .agg("count", "tokens_out").agg("sum", "tokens_out"))[0]
+
+        results, wall = _run_clients(SERVE_CLIENTS, request)
+        m = table["latency_ms"] > 100.0
+        want = {"count(tokens_out)": float(m.sum()),
+                "sum(tokens_out)": float(
+                    table["tokens_out"][m].astype(np.int64).sum())}
+        if any(r != want for r in results):
+            raise AssertionError(f"serve analytics: {results[0]} != {want}")
+        st = dict(session.stats)
+        if st["admitted"] != SERVE_CLIENTS or \
+                st["executed"] + st["deduped"] != SERVE_CLIENTS:
+            raise AssertionError(f"serve analytics session stats {st}")
+        return {"rows": n, "objects": omap.n_objects,
+                "generate_s": gen_s, "write_s": write_s, "wall_s": wall,
+                "clients": SERVE_CLIENTS, "stats": st, "result": want}
+    finally:
+        store.close()
+
+
+def _invariant(P, model, dev, n_prefill: int, n_decode: int,
+               seed: int) -> dict:
+    """prefill(n_prefill) then n_decode teacher-forced decode steps
+    against prefill of all n_prefill + n_decode tokens, batch 2: the
+    last logits of each, max |err| and whether they meet rtol = atol =
+    ``INVARIANT_TOL``."""
+    S = n_prefill + n_decode
+    gen = torch.Generator().manual_seed(seed + 4)
+    toks = torch.randint(0, model.cfg.vocab_size, (2, S), generator=gen,
+                         dtype=torch.int32).to(dev)
+    pad = P.engine.ServeEngine(model, max_seq=S)._pad_cache
+    t = time.perf_counter()
+    with torch.inference_mode():
+        full, _ = model.prefill({"tokens": toks})
+        logits, cache = model.prefill({"tokens": toks[:, :n_prefill]})
+        cache = pad(cache)
+        for i in range(n_prefill, S):
+            logits, cache = model.decode_step(toks[:, i:i + 1], cache)
+        _sync(dev)
+    err = (logits - full).abs()
+    ok = bool((err <= INVARIANT_TOL + INVARIANT_TOL * full.abs()).all())
+    return {"dtype": str(model.cfg.param_dtype).removeprefix("torch."),
+            "prefill": n_prefill, "decode_steps": n_decode,
+            "max_abs_err": float(err.max()),
+            "max_abs_logit": float(full.abs().max()),
+            "finite": bool(torch.isfinite(logits).all()
+                           and torch.isfinite(full).all()),
+            "within_2e-2": ok, "wall_s": time.perf_counter() - t}
+
+
+def serve_path(P, dev, seed: int, card: str) -> dict:
+    """yi_9b at full width and depth in bf16 through ``ServeEngine``:
+    generate, park and resume the session, the analytics scans; then the
+    prefill/decode invariant in bf16 (printed) and float32 (gated)."""
+    cfg = P.configs.get_config(SERVE_ARCH)
+    t = time.perf_counter()
+    model = P.archs.build_model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(seed))
+    _sync(dev)
+    init_s = time.perf_counter() - t
+    n_params = sum(p.numel() for p in model.parameters())
+    store = P.core.make_store(8, replicas=3)
+    try:
+        engine = P.engine.ServeEngine(model, max_seq=SERVE_MAX_SEQ,
+                                      store=store)
+        rng = np.random.default_rng(seed)
+        reqs = _serve_requests(P, cfg, rng)
+        # the same batch for two tokens first: the first call of each
+        # kernel shape and library handle stays out of the timed run
+        engine.generate([P.engine.Request(r.prompt, max_new=2)
+                         for r in reqs])
+        prefill_s, decode_s = [], []
+        engine._prefill = _timed(engine._prefill, dev, prefill_s)
+        engine._decode = _timed(engine._decode, dev, decode_s)
+        _zero_counts(P)                  # the path's run starts here
+        t = time.perf_counter()
+        comps = engine.generate(reqs)
+        generate_s = time.perf_counter() - t
+        if [c.steps for c in comps] != [SERVE_MAX_NEW] * SERVE_BATCH or \
+                any(((c.tokens < 0) | (c.tokens >= cfg.vocab_size)).any()
+                    for c in comps):
+            raise AssertionError("serve: completions "
+                                 f"{[c.steps for c in comps]}")
+        cache = engine._last_cache
+        nbytes = sum(t_.nbytes for _, t_ in
+                     P.pytree.flatten_with_keys(cache))
+        _sync(dev)
+        t = time.perf_counter()
+        engine.park_session("serve-0")
+        park_s = time.perf_counter() - t
+        t = time.perf_counter()
+        back = engine.resume_session("serve-0", SERVE_BATCH)
+        _sync(dev)
+        resume_s = time.perf_counter() - t
+        manifest = json.loads(store.get("kv/serve-0/.manifest").decode())
+        pages = {k: len(m["pages"]) for k, m in manifest["leaves"].items()}
+        want = SERVE_MAX_SEQ // P.kvcache.PAGE_TOKENS
+        if pages != {"['k']": want, "['pos']": 1, "['v']": want}:
+            raise AssertionError(f"serve KV pages per leaf {pages}")
+        for key in ("k", "v", "pos"):
+            if not _bits_equal(back[key], cache[key]):
+                raise AssertionError(f"serve: resumed leaf {key} differs")
+        del back
+        # one more decode step under the profiler: the card's busy share
+        tok = torch.zeros((SERVE_BATCH, 1), dtype=torch.int32, device=dev)
+        with torch.inference_mode():
+            busy_ms, step_s, events, top = traced(
+                lambda: model.decode_step(tok, cache))
+    finally:
+        store.close()
+    ana = _analytics(P, engine, dev, seed)
+    launches = _counts(P)                # ... and ends here
+    if not launches["bitunpack"] > 0 or launches["filter_agg"] \
+            or launches["block_agg"]:
+        raise AssertionError(f"serve launches {launches}")
+    steps = len(decode_s)
+    res = {"arch": cfg.name, "params": n_params, "init_s": init_s,
+           "batch": SERVE_BATCH, "prompt_lens": [len(r.prompt)
+                                                 for r in reqs],
+           "max_new": SERVE_MAX_NEW, "max_seq": SERVE_MAX_SEQ,
+           "generate_s": generate_s, "prefill_ms": prefill_s[0] * 1e3,
+           "decode_steps": steps,
+           "decode_ms_per_step": sum(decode_s) / steps * 1e3,
+           "decode_ms_median": float(np.median(decode_s)) * 1e3,
+           "decode_tokens_per_s": SERVE_BATCH * steps / sum(decode_s),
+           "traced_step": {"wall_ms": step_s * 1e3, "busy_ms": busy_ms,
+                           "busy_share": busy_ms / (step_s * 1e3),
+                           "device_events": events,
+                           "top_kernels": top},
+           "generate_tokens_per_s": sum(c.steps for c in comps)
+           / generate_s,
+           "peak_mem_GB": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "kv_bytes": nbytes, "kv_pages": pages, "park_s": park_s,
+           "park_GB_per_s": nbytes / park_s / 1e9, "resume_s": resume_s,
+           "resume_GB_per_s": nbytes / resume_s / 1e9,
+           "analytics": ana, "launches": launches}
+    print("serve: " + json.dumps(res), flush=True)
+    print(f"serve: {cfg.name} bf16 {n_params} params, {SERVE_BATCH} "
+          f"requests of {min(res['prompt_lens'])}-{max(res['prompt_lens'])}"
+          f" tokens: prefill {res['prefill_ms']:.3f} ms, decode "
+          f"{res['decode_ms_per_step']:.3f} ms per step ({steps} steps, "
+          f"{res['decode_tokens_per_s']:.1f} tokens/s; card busy "
+          f"{busy_ms:.3f} ms of a traced {step_s * 1e3:.3f} ms step); KV "
+          f"{nbytes} B park "
+          f"{park_s:.3f} s ({res['park_GB_per_s']:.3f} GB/s), resume "
+          f"{resume_s:.3f} s ({res['resume_GB_per_s']:.3f} GB/s), bit-equal;"
+          f" analytics {ana['clients']} clients {ana['wall_s']:.4f} s, "
+          f"executed {ana['stats']['executed']} of "
+          f"{ana['stats']['admitted']}, bitunpack launches "
+          f"{launches['bitunpack']}  [{card}]", flush=True)
+    del engine, comps, cache
+    res["invariant_bf16"] = _invariant(P, model, dev, *INVARIANT_BF16, seed)
+    print("serve invariant (bf16, no gate): "
+          + json.dumps(res["invariant_bf16"]), flush=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32 = dataclasses.replace(cfg, param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    model = P.archs.build_model(f32, device=dev).init(
+        torch.Generator(device=dev).manual_seed(seed))
+    inv = _invariant(P, model, dev, *INVARIANT_F32, seed)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["invariant_f32"] = inv
+    print("serve invariant (float32): " + json.dumps(inv), flush=True)
+    if not (inv["finite"] and inv["within_2e-2"]):
+        raise AssertionError(f"serve: float32 prefill/decode invariant "
+                             f"fails rtol/atol {INVARIANT_TOL}: {inv}")
+    shape = P.configs.SHAPES["decode_32k"]
+    B, S = shape.global_batch, shape.seq_len
+    need = (2 * cfg.n_layers * B * S * cfg.n_kv_heads * cfg.head_dim
+            * torch.bfloat16.itemsize)
+    print(f"reduced: serve at batch {SERVE_BATCH} x {SERVE_MAX_SEQ} cache "
+          f"slots; decode_32k's batch of {B} x {S} tokens needs "
+          f"{need / 1e9:.1f} GB of KV cache, more than one card's 80 GB")
+    return res
 
 
 # --------------------------------------------------------------------------
@@ -1442,6 +1737,9 @@ def main(argv=None) -> int:
     gc.collect()
     planes.update(fresh_planes(P, dev, args.seed, card,
                                maint_rows=ds_rows))
+    gc.collect()
+    torch.cuda.empty_cache()
+    planes["serve"] = serve_path(P, dev, args.seed, card)
 
     scans = {"scan": res["launches"],
              "packed ingest": ing["launches"]["bitunpack"],

@@ -1,0 +1,210 @@
+"""Attention: GQA/MHA/MQA flash-style blockwise attention and the decode
+paths.
+
+The counterpart of ``repro.models.attention`` (forward only; the flash
+backward and MLA wait for the training slice).  Layouts are the
+reference's:
+  q weights  (D, H, hd)
+  kv weights (D, K, hd)
+  o weights  (H, hd, D)
+
+Prefill attention is the reference's online softmax over (q-block,
+kv-block) pairs (``_flash_fwd_scan``), written as two Python loops of
+plain torch ops, not SDPA, so its numbers and masking are the
+reference's: scores in float32 from operands upcast before the product,
+masked scores ``s * mask + _NEG * (1 - mask)``, the probabilities cast
+to the values' dtype before the value product, and ``acc / max(l,
+1e-20)``.  Query head h reads KV head h // G (``repeat_interleave``).
+
+Decode attends one query against the cache and writes the new K and V
+into it in place at ``min(pos, S - 1)`` (the reference's
+``dynamic_update_slice`` clamps the same way), with keys
+``arange(S) <= pos`` valid and a plain softmax.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.layers import _param, apply_rope
+
+_NEG = -1e30
+
+
+# --------------------------------------------------------------------------
+# params
+# --------------------------------------------------------------------------
+
+
+def init_attention(cfg: ArchConfig, device=None) -> nn.ParameterDict:
+    d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dt = cfg.param_dtype
+    return nn.ParameterDict({
+        "wq": _param((d, H, hd), dt, device),
+        "wk": _param((d, K, hd), dt, device),
+        "wv": _param((d, K, hd), dt, device),
+        "wo": _param((H, hd, d), dt, device)})
+
+
+# --------------------------------------------------------------------------
+# flash attention (prefill), forward
+# --------------------------------------------------------------------------
+
+
+def flash_attention(
+    q: torch.Tensor,          # (B, Sq, H, hd)
+    k: torch.Tensor,          # (B, Sk, K, hd)
+    v: torch.Tensor,          # (B, Sk, K, hdv)
+    *,
+    causal: bool = True,
+    q_offset: int = 0,        # absolute position of q[0] (prefill cont.)
+    block_q: int = 512,
+    block_k: int = 512,
+) -> torch.Tensor:
+    B, Sq, H, hd = q.shape
+    _, Sk, K, hdv = v.shape
+    G = H // K
+    scale = hd ** -0.5
+    bq, bk = min(block_q, Sq), min(block_k, Sk)
+    if Sq % bq or Sk % bk:
+        raise ValueError(f"flash_attention: lengths {(Sq, Sk)} are not "
+                         f"multiples of the blocks {(bq, bk)}")
+    dev = q.device
+    out = torch.empty((B, Sq, H, hdv), dtype=q.dtype, device=dev)
+    for i in range(0, Sq, bq):
+        q_i = q[:, i:i + bq].float()
+        qp = q_offset + torch.arange(i, i + bq, device=dev)
+        m = torch.full((B, H, bq), _NEG, dtype=torch.float32, device=dev)
+        l = torch.zeros((B, H, bq), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, H, bq, hdv), dtype=torch.float32, device=dev)
+        for j in range(0, Sk, bk):
+            if causal and j > q_offset + i + bq - 1:
+                # every key from here on is masked for every row of the
+                # block: its p is 0 and its correction exp(0) = 1, so
+                # the rest of the reference's loop leaves m, l and acc
+                # bit-identical
+                break
+            k_j = k[:, j:j + bk].repeat_interleave(G, dim=2)
+            v_j = v[:, j:j + bk].repeat_interleave(G, dim=2)
+            s = torch.einsum("bqhd,bkhd->bhqk", q_i, k_j.float()) * scale
+            if causal:
+                kp = torch.arange(j, j + bk, device=dev)
+                mask = (qp[:, None] >= kp[None, :]).float()
+                s = s * mask + _NEG * (1.0 - mask)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            if causal:
+                p = p * mask                     # zero masked entries
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            pv = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(),
+                              v_j.float())
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        o = acc / torch.clamp_min(l, 1e-20)[..., None]
+        out[:, i:i + bq] = o.transpose(1, 2).to(q.dtype)
+    return out
+
+
+# --------------------------------------------------------------------------
+# GQA layer application
+# --------------------------------------------------------------------------
+
+
+def _qkv(cfg: ArchConfig, p, x: torch.Tensor, positions: torch.Tensor):
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta), v)
+
+
+def gqa_forward(cfg: ArchConfig, p, x: torch.Tensor,
+                positions: torch.Tensor, *, q_offset: int = 0,
+                kv_out: bool = False):
+    """Prefill attention.  Returns (out, (k, v)) — k/v for the cache."""
+    q, k, v = _qkv(cfg, p, x, positions)
+    o = flash_attention(q, k, v, causal=True, q_offset=q_offset)
+    out = torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    return out, ((k, v) if kv_out else None)
+
+
+def _decode_qkv(cfg: ArchConfig, p, x: torch.Tensor, pos):
+    """``pos`` as a 0-d int32 tensor, and q, k, v of one token there."""
+    B = x.shape[0]
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
+    q, k, v = _qkv(cfg, p, x, pos.expand(B, 1))
+    return pos, q, k, v
+
+
+def _write(cache: torch.Tensor, new: torch.Tensor,
+           pos: torch.Tensor) -> None:
+    """``cache[:, min(pos, S - 1)] = new`` in place (cache: (B, S, ...),
+    new: (B, 1, ...))."""
+    idx = torch.clamp_max(pos, cache.shape[1] - 1).reshape(1).long()
+    cache.index_copy_(1, idx, new.to(cache.dtype))
+
+
+def gqa_decode(cfg: ArchConfig, p, x: torch.Tensor, pos,
+               k_cache: torch.Tensor, v_cache: torch.Tensor):
+    """Single-token decode.  x: (B, 1, D); pos: 0-d int32, the position
+    being written; caches: (B, S_max, K, hd), updated in place.
+    Returns (out, k_cache, v_cache)."""
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    G = H // K
+    B, S = k_cache.shape[0], k_cache.shape[1]
+    pos, q, k, v = _decode_qkv(cfg, p, x, pos)
+    _write(k_cache, k, pos)
+    _write(v_cache, v, pos)
+
+    qg = q.reshape(B, K, G, hd)        # query head h reads kv head h // G
+    s = torch.einsum("bkgd,bskd->bkgs", qg.float(),
+                     k_cache.float()) * (hd ** -0.5)
+    valid = torch.arange(S, device=x.device) <= pos
+    s = torch.where(valid, s, _NEG)
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", w.to(v_cache.dtype), v_cache)
+    out = torch.einsum("bhk,hkd->bd", o.reshape(B, H, hd),
+                       p["wo"])[:, None, :]
+    return out.to(x.dtype), k_cache, v_cache
+
+
+def quantize_kv(x: torch.Tensor):
+    """Per-(token, kv-head) symmetric int8 over head_dim.
+    x: (..., hd) -> (int8 values, f32 scale without the hd dim)."""
+    xf = x.float()
+    scale = torch.clamp_min(xf.abs().amax(-1) / 127.0, 1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def gqa_decode_q8(cfg: ArchConfig, p, x: torch.Tensor, pos,
+                  k_cache, v_cache, k_scale, v_scale):
+    """gqa_decode against an int8-quantized cache: (B, S, K, hd) int8 +
+    (B, S, K) f32 scales, all updated in place."""
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    G = H // K
+    B, S = k_cache.shape[0], k_cache.shape[1]
+    pos, q, k, v = _decode_qkv(cfg, p, x, pos)
+    kq, ks = quantize_kv(k)
+    vq, vs = quantize_kv(v)
+    _write(k_cache, kq, pos)
+    _write(v_cache, vq, pos)
+    _write(k_scale, ks, pos)
+    _write(v_scale, vs, pos)
+
+    qg = q.reshape(B, K, G, hd)
+    # dequant folded into the contraction: s = (q . k_int8) * scale
+    s = torch.einsum("bkgd,bskd->bkgs", qg.float(),
+                     k_cache.float()) * (hd ** -0.5)
+    s = s * k_scale.transpose(1, 2)[:, :, None, :]
+    valid = torch.arange(S, device=x.device) <= pos
+    s = torch.where(valid, s, _NEG)
+    w = torch.softmax(s, dim=-1)
+    wv = w * v_scale.transpose(1, 2)[:, :, None, :]
+    o = torch.einsum("bkgs,bskd->bkgd", wv, v_cache.float())
+    out = torch.einsum("bhk,hkd->bd", o.reshape(B, H, hd).to(x.dtype),
+                       p["wo"])[:, None, :]
+    return out.to(x.dtype), k_cache, v_cache, k_scale, v_scale

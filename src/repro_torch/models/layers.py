@@ -1,0 +1,185 @@
+"""Shared neural-net building blocks.
+
+The counterpart of ``repro.models.layers``.  Parameters live in
+``nn.ParameterDict``s whose keys are those of the reference's params
+tree (``{"scale", "bias"}``, ``{"w1", "w3", "w2"}``, ``{"tok",
+"head"}``), and the ``apply_*`` functions take such a mapping and
+tensors.  The ``init_*`` functions allocate the parameters
+uninitialised on ``device``; the model's ``init`` fills them
+(``dense_init_``).  Head-carrying weights keep the reference's
+(D, H, head_dim) form and are consumed with einsum.
+
+Numerics follow the reference: norms and rope compute in float32 and
+cast back, layernorm's variance has ddof 0, gelu is the tanh
+approximation (``jax.nn.gelu``'s default), and the loss's logits are
+float32 from operands upcast before the product.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+
+# --------------------------------------------------------------------------
+# init helpers
+# --------------------------------------------------------------------------
+
+
+def _param(shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
+
+
+@torch.no_grad()
+def dense_init_(w: torch.Tensor, d_in: int,
+                generator: torch.Generator) -> None:
+    """Fill ``w`` with normal * d_in^-0.5 drawn in float32, then cast."""
+    z = torch.randn(w.shape, generator=generator, dtype=torch.float32,
+                    device=w.device)
+    w.copy_(z.mul_(d_in ** -0.5))
+
+
+# --------------------------------------------------------------------------
+# normalization
+# --------------------------------------------------------------------------
+
+
+def init_norm(cfg: ArchConfig, d: int, device=None) -> nn.ParameterDict:
+    params = {"scale": _param((d,), torch.float32, device)}
+    if cfg.norm == "layernorm":
+        params["bias"] = _param((d,), torch.float32, device)
+    return nn.ParameterDict(params)
+
+
+def apply_norm(cfg: ArchConfig, p, x: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    if cfg.norm == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = xf.var(-1, keepdim=True, correction=0)
+        out = (xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+    else:
+        ms = xf.square().mean(-1, keepdim=True)
+        out = xf * torch.rsqrt(ms + eps) * p["scale"]
+    return out.to(x.dtype)
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    ms = xf.square().mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * scale).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# rotary embeddings
+# --------------------------------------------------------------------------
+
+
+def rope_frequencies(head_dim: int, theta: float,
+                     device=None) -> torch.Tensor:
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                            device=device) / head_dim
+    return 1.0 / (theta ** exponent)  # (head_dim/2,)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, head_dim); positions: broadcastable to (..., S).
+    The head splits into halves (no interleave)."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)
+    angles = positions[..., None].float() * freqs   # (..., S, hd/2)
+    angles = angles[..., None, :]                   # (..., S, 1, hd/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# MLP
+# --------------------------------------------------------------------------
+
+
+def init_mlp(cfg: ArchConfig, d: int, d_ff: int, dtype,
+             device=None) -> nn.ParameterDict:
+    params = {"w1": _param((d, d_ff), dtype, device)}
+    if cfg.act == "silu_gated":
+        params["w3"] = _param((d, d_ff), dtype, device)
+    params["w2"] = _param((d_ff, d), dtype, device)
+    return nn.ParameterDict(params)
+
+
+def apply_act(cfg: ArchConfig, h: torch.Tensor,
+              gate: torch.Tensor | None) -> torch.Tensor:
+    if cfg.act == "silu_gated":
+        return F.silu(gate) * h
+    if cfg.act == "gelu":
+        return F.gelu(h, approximate="tanh")
+    if cfg.act == "relu_sq":
+        return torch.square(F.relu(h))
+    raise ValueError(cfg.act)
+
+
+def apply_mlp(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
+    h = x @ p["w1"]
+    gate = x @ p["w3"] if "w3" in p else None
+    return apply_act(cfg, h, gate) @ p["w2"]
+
+
+# --------------------------------------------------------------------------
+# embeddings / logits / loss
+# --------------------------------------------------------------------------
+
+
+def init_embed(cfg: ArchConfig, device=None) -> nn.ParameterDict:
+    return nn.ParameterDict({
+        "tok": _param((cfg.vocab_size, cfg.d_model), cfg.param_dtype,
+                      device),
+        "head": _param((cfg.d_model, cfg.vocab_size), cfg.param_dtype,
+                       device)})
+
+
+def embed_tokens(p, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    return p["tok"][tokens.long()].to(dtype)
+
+
+def chunked_softmax_xent(
+    hidden: torch.Tensor,     # (B, S, D) final hidden states
+    head: torch.Tensor,       # (D, V) output projection
+    labels: torch.Tensor,     # (B, S) int32; -1 = masked position
+    *,
+    chunk: int = 1024,
+    z_loss: float = 1e-4,
+):
+    """Cross entropy with the vocab projection in S-chunks (forward):
+    the (B, chunk, V) float32 logits block is the peak, never (B, S, V).
+    Returns ``(loss, {"nll", "accuracy", "tokens"})`` as 0-d float32."""
+    B, S, D = hidden.shape
+    n_chunks = max(S // chunk, 1)
+    chunk = S // n_chunks
+    hs = hidden.reshape(B, n_chunks, chunk, D)
+    ls = labels.reshape(B, n_chunks, chunk)
+    head_f = head.float()
+    zero = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    loss_sum, z_sum, cnt, correct = zero, zero, zero, zero
+    for c in range(n_chunks):
+        logits = hs[:, c].float() @ head_f                   # (B, c, V)
+        lab = ls[:, c].long()
+        lse = torch.logsumexp(logits, dim=-1)                 # (B, c)
+        hit = torch.arange(logits.shape[-1],
+                           device=logits.device) == lab[..., None]
+        tgt = torch.where(hit, logits, 0.0).sum(-1)
+        mask = (lab >= 0).float()
+        loss_sum = loss_sum + ((lse - tgt) * mask).sum()
+        z_sum = z_sum + (lse.square() * mask).sum()
+        cnt = cnt + mask.sum()
+        correct = correct + ((logits.argmax(-1) == lab).float()
+                             * mask).sum()
+    cnt = torch.clamp_min(cnt, 1.0)
+    loss = loss_sum / cnt + z_loss * z_sum / cnt
+    metrics = {"nll": loss_sum / cnt, "accuracy": correct / cnt,
+               "tokens": cnt}
+    return loss, metrics

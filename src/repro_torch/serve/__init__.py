@@ -1,1 +1,2 @@
-"""Serving state in the object store: KV-cache pages (``kvcache``)."""
+"""Serving: the batched engine (``engine``), its step builders
+(``steps``) and KV-cache pages in the store (``kvcache``)."""

@@ -38,7 +38,17 @@ def test_import_pulls_in_no_jax_and_no_reference():
             "repro_torch.core.maintenance",
             "repro_torch.distributed.elastic", "repro_torch.pytree",
             "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt",
-            "repro_torch.serve", "repro_torch.serve.kvcache"} <= set(mods)
+            "repro_torch.serve", "repro_torch.serve.kvcache",
+            "repro_torch.configs", "repro_torch.configs.base",
+            *(f"repro_torch.configs.{a}" for a in (
+                "deepseek_67b", "deepseek_v2_lite_16b", "granite_20b",
+                "grok1_314b", "musicgen_large", "pixtral_12b", "rwkv6_3b",
+                "starcoder2_7b", "yi_9b", "zamba2_2p7b")),
+            "repro_torch.models", "repro_torch.models.layers",
+            "repro_torch.models.attention", "repro_torch.models.inputs",
+            "repro_torch.models.transformer", "repro_torch.models.archs",
+            "repro_torch.serve.engine", "repro_torch.serve.steps",
+            "repro_torch.launch", "repro_torch.launch.serve"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -52,11 +62,11 @@ def test_import_pulls_in_no_jax_and_no_reference():
     assert out.stdout.strip() == "[]"
 
 
-@pytest.mark.parametrize("pkg", ["core", "checkpoint"])
+@pytest.mark.parametrize("pkg", ["core", "checkpoint", "configs"])
 def test_exports_match_the_reference(pkg):
     """Every public name the reference package exports, the port
-    exports too (``repro.checkpoint`` needs JAX, so it is read, not
-    imported)."""
+    exports too (``repro.checkpoint`` and ``repro.configs`` need JAX, so
+    they are read, not imported)."""
     import inspect
 
     port = importlib.import_module(f"repro_torch.{pkg}")
@@ -65,7 +75,7 @@ def test_exports_match_the_reference(pkg):
         names = {n for n in dir(ref) if not n.startswith("_")
                  and not inspect.ismodule(getattr(ref, n))}
     else:
-        init = ROOT / "src" / "repro" / "checkpoint" / "__init__.py"
+        init = ROOT / "src" / "repro" / pkg / "__init__.py"
         names = {a.asname or a.name
                  for node in ast.walk(ast.parse(init.read_text()))
                  if isinstance(node, ast.ImportFrom) for a in node.names}
