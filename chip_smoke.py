@@ -69,11 +69,34 @@
     prefill of all 1024, batch 2) at full width and depth in float32,
     held to rtol/atol 2e-2; the same check in bf16 (448 + 64 against
     512) is printed without a gate.
+14. Train, full width: yi_9b at its published widths with 24 of its 48
+    layers (4,676,849,664 parameters; bf16 params and grads and float32
+    AdamW moments are 56.1 GB), ``remat="full"``, random weights from
+    ``--seed``.  A 1024 x 4096-token corpus built from ``--seed`` into a
+    fresh 8-OSD, 2-replica store in one ``build_corpus`` call; a packed,
+    prefetching ``ObjectDataLoader`` feeding ``Trainer(packed_ingest=
+    True)`` (``fused_batch``: the ``bitunpack`` kernel) for 8 steps of
+    4 x 4096 tokens.  Every loss finite and the last below the first;
+    one ``bitunpack`` launch a step; step walls, tokens/s, model FLOPs
+    and their share of the bf16 dense peak, peak memory, and the card's
+    busy share of one more step under ``torch.profiler``.
+15. Train restart: the same widths with 2 layers, 4 steps with a
+    checkpoint every 2 (keep 2) into the store; step 4's objects
+    deleted, the state restored from step 2 and steps 2 -> 4 run again
+    under ``torch.use_deterministic_algorithms``: every leaf of params,
+    m and v bit-equal to the uninterrupted run.  Save and restore walls
+    and GB/s.
+16. Flash backward: the ``torch.autograd.Function`` against autograd
+    through the checkpointed forward loop (``impl="scan"``) at one
+    full-width layer's shapes (B 1, S 4096, H 32, K 4, hd 128, causal):
+    dq, dk, dv within rtol/atol 1e-4 in float32, printed in bf16; both
+    routes timed.
 
 Each path runs with the kernels' launch counts set to 0 just before it
 and read just after; every kernel of a path must have launched (the
-checkpoint and KV paths decode nothing and launch no kernel; the serve
-path launches ``bitunpack`` in its analytics scans).  The
+checkpoint and KV paths decode nothing and launch no kernel, nor does
+the flash backward; the serve path launches ``bitunpack`` in its
+analytics scans, the train paths once a step).  The
 line before the last two is the ``kernels`` JSON object; the last line
 is ``{"ok": true, "device": {...}}``; any failure raises and the exit
 code is non-zero.  Needs a CUDA device and a checkout of the
@@ -128,6 +151,20 @@ SERVE_CLIENTS = 8
 # the invariant of tests/test_models.py:57-86 at full size: (prefill,
 # decode steps) per dtype; float32 is held to the reference's 2e-2
 INVARIANT_F32, INVARIANT_BF16, INVARIANT_TOL = (512, 512), (448, 64), 2e-2
+# train: yi_9b at its published widths, 24 of its 48 layers (bf16 params
+# and grads with float32 AdamW moments are 56.1 GB; all 48 need ~106 GB
+# before activations), 4 x 4096 tokens a step, packed ingest from a
+# 1024-sequence corpus; the launcher's warmup rule (max(steps // 10, 2))
+# at lr 1e-4: from random weights at this width the launcher's 1e-3, and
+# 3e-4, end 8 steps above the first loss (11.82 -> 12.73 and 13.83 on an
+# H100), 1e-4 below it (9.47)
+TRAIN_ARCH, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = "yi_9b", 24, 4, 4096
+TRAIN_SEQS, TRAIN_STEPS, TRAIN_LR = 1024, 8, 1e-4
+# the restart: 2 layers, 4 steps with a checkpoint every 2 (keep 2)
+RESTART_LAYERS, RESTART_STEPS, RESTART_EVERY = 2, 4, 2
+# the flash backward at one full-width layer's shapes: B, S, H, K, hd
+FLASH_SHAPE, FLASH_TOL = (1, 4096, 32, 4, 128), 1e-4
+BF16_PEAK_FLOPS = 989e12       # H100 SXM data sheet, dense
 
 
 def _load_port():
@@ -147,14 +184,16 @@ def _load_port():
     from repro_torch.kernels import bitunpack as bu
     from repro_torch.kernels import block_agg as ba
     from repro_torch.kernels import filter_agg as fa
-    from repro_torch.models import archs
+    from repro_torch.models import archs, attention
     from repro_torch.serve import engine, kvcache
+    from repro_torch.train import optimizer, trainer
     return argparse.Namespace(
         core=core, fmt=fmt, bu=bu, fa=fa, ba=ba, ops=ops, ref=ref,
         build=_build, pushdown=pushdown_torch, corpus=corpus,
         pipeline=pipeline, ingest=fused_ingest, elastic=elastic,
         ckpt=ckpt, kvcache=kvcache, pytree=pytree, configs=configs,
-        archs=archs, engine=engine)
+        archs=archs, engine=engine, attention=attention,
+        optimizer=optimizer, trainer=trainer)
 
 
 def card_line() -> str:
@@ -1303,6 +1342,7 @@ def kv_path(P, dev, seed: int) -> dict:
 
 
 PLANE_PATHS = ("skyhook", "session", "faults", "maintenance", "serve")
+TRAIN_PATHS = ("train", "train restart")
 
 
 def table_planes(P, store, table: dict, seed: int, card: str) -> dict:
@@ -1603,6 +1643,285 @@ def serve_path(P, dev, seed: int, card: str) -> dict:
 
 
 # --------------------------------------------------------------------------
+# training: the full-width step, the restart, the flash backward
+# --------------------------------------------------------------------------
+
+
+def _free_card() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _train_world(P, cfg, seed: int):
+    """A fresh 8-OSD, 2-replica store holding the corpus, written in one
+    ``build_corpus`` call (a chunked write that cuts objects loses rows
+    in both packages)."""
+    core = P.core
+    store = core.make_store(8, replicas=2)
+    vol = core.GlobalVOL(store)
+    spec = P.corpus.CorpusSpec(n_seqs=TRAIN_SEQS, seq_len=TRAIN_SEQ,
+                               vocab_size=cfg.vocab_size, seed=seed)
+    omap = P.corpus.build_corpus(vol, spec, chunk_rows=TRAIN_SEQS)
+    return store, vol, omap
+
+
+def _trainer(P, model, store, vol, seed: int, steps: int, every: int):
+    """The launcher's wiring: a packed, prefetching loader feeding a
+    packed-ingest ``Trainer``."""
+    loader = P.pipeline.ObjectDataLoader(vol, "corpus",
+                                         global_batch=TRAIN_BATCH,
+                                         seed=seed, packed=True, prefetch=2)
+    opt = P.optimizer.OptConfig(lr=TRAIN_LR,
+                                warmup_steps=max(steps // 10, 2),
+                                total_steps=steps)
+    cfg = P.trainer.TrainerConfig(total_steps=steps, ckpt_every=every,
+                                  ckpt_keep=2, log_every=steps,
+                                  packed_ingest=True)
+    return P.trainer.Trainer(model, loader, store, opt=opt, cfg=cfg,
+                             log=lambda msg: print(msg, flush=True))
+
+
+def train_flops(cfg, n_params: int, batch: int, seq: int) -> float:
+    """Model FLOPs of one train step: 6 per matrix-multiplied parameter
+    (all but the token embedding, a gather) per token, plus causal
+    attention's two S x S products per layer, half of them masked,
+    three times over (forward and backward)."""
+    tokens = batch * seq
+    dense = 6 * (n_params - cfg.vocab_size * cfg.d_model) * tokens
+    attn = 6 * cfg.n_layers * batch * seq * seq * cfg.n_heads * cfg.head_dim
+    return float(dense + attn)
+
+
+def train_path(P, dev, seed: int, card: str) -> dict:
+    """yi_9b at full width, ``TRAIN_LAYERS`` layers, remat "full": the
+    corpus in the store -> packed loader -> ``fused_batch`` (bitunpack)
+    -> train step, ``TRAIN_STEPS`` steps, then one step traced."""
+    _free_card()
+    cfg = dataclasses.replace(P.configs.get_config(TRAIN_ARCH),
+                              n_layers=TRAIN_LAYERS)
+    model = P.archs.build_model(cfg, remat="full", device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    store, vol, omap = _train_world(P, cfg, seed)
+    try:
+        # no checkpoint at this depth: one save is ~47 GB of host copies
+        tr = _trainer(P, model, store, vol, seed, TRAIN_STEPS,
+                      every=TRAIN_STEPS + 1)
+        t = time.perf_counter()
+        state, start = tr.init_or_restore(seed)
+        _sync(dev)
+        init_s = time.perf_counter() - t
+        if start != 0:
+            raise AssertionError(f"train: fresh store restored step {start}")
+        _zero_counts(P)                  # the path's run starts here
+        t = time.perf_counter()
+        state = tr.run(state, start_step=0)
+        run_s = time.perf_counter() - t
+        launches = _counts(P)            # ... and ends here
+        peak = torch.cuda.max_memory_allocated(dev)
+        words = next(tr.loader)["tokens_packed"]
+        tr.loader.close()
+    finally:
+        store.close()
+    losses = [r["loss"] for r in tr.history]
+    batch = {"tokens_packed": torch.from_numpy(
+        np.ascontiguousarray(words).view(np.int32)).to(dev)}
+    busy_ms, step_s, events, top = traced(lambda: tr.train_step(state,
+                                                                 batch))
+    walls = [r["wall_s"] for r in tr.history]
+    later = walls[1:]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = train_flops(cfg, n_params, TRAIN_BATCH, TRAIN_SEQ)
+    mean_s = float(np.mean(later))
+    res = {"arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
+           "remat": "full", "microbatches": 1, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+           "corpus_sequences": TRAIN_SEQS, "corpus_objects": omap.n_objects,
+           "init_s": init_s, "run_s": run_s, "losses": losses,
+           "grad_norms": [r["grad_norm"] for r in tr.history],
+           "step_s": walls, "first_step_s": walls[0],
+           "step_mean_s": mean_s, "step_median_s": float(np.median(later)),
+           "tokens_per_s": tokens / mean_s, "model_flops": flops,
+           "bf16_peak_share": flops / mean_s / BF16_PEAK_FLOPS,
+           "peak_mem_GB": peak / 1e9,
+           "traced_step": {"wall_s": step_s, "busy_ms": busy_ms,
+                           "busy_share": busy_ms / (step_s * 1e3),
+                           "device_events": events, "top_kernels": top},
+           "launches": launches}
+    print("train: " + json.dumps(res), flush=True)
+    print(f"train: {cfg.name} {cfg.n_layers} layers, {n_params} params, "
+          f"{TRAIN_STEPS} packed-ingest steps of {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens: loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+          f"step {mean_s:.4f} s mean, {res['step_median_s']:.4f} s median "
+          f"(first {walls[0]:.4f} s), {res['tokens_per_s']:.1f} tokens/s, "
+          f"{flops:.4g} model FLOPs a step = "
+          f"{res['bf16_peak_share']:.2%} of the bf16 dense peak; traced "
+          f"step: card busy {busy_ms:.1f} ms of {step_s * 1e3:.1f} ms; peak "
+          f"memory {res['peak_mem_GB']:.3f} GB; bitunpack launches "
+          f"{launches['bitunpack']}  [{card}]", flush=True)
+    print(f"reduced: train at {TRAIN_LAYERS} of {TRAIN_ARCH}'s "
+          f"{P.configs.get_config(TRAIN_ARCH).n_layers} layers (bf16 "
+          f"params and grads with float32 AdamW moments of all of them need"
+          f" ~106 GB before activations, more than one card's 80 GB) and a "
+          f"global batch of {TRAIN_BATCH} x {TRAIN_SEQ} tokens (train_4k is "
+          f"256 x 4096 on a pod); a {TRAIN_SEQS}-sequence corpus")
+    del tr, state, model, batch
+    if launches != {"bitunpack": TRAIN_STEPS, "filter_agg": 0,
+                    "block_agg": 0}:
+        raise AssertionError(f"train launches {launches}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train: losses {losses}")
+    return res
+
+
+def _state_leaves(state) -> dict[str, torch.Tensor]:
+    return {f"{part}/{name}": t
+            for part, tree in (("params", state["params"]),
+                               ("m", state["opt"]["m"]),
+                               ("v", state["opt"]["v"]))
+            for name, t in tree.items()}
+
+
+def restart_path(P, dev, seed: int, card: str) -> dict:
+    """The same widths at ``RESTART_LAYERS`` layers: ``RESTART_STEPS``
+    steps with a checkpoint every ``RESTART_EVERY`` (keep 2); then the
+    last checkpoint's objects deleted, the state restored from the one
+    before it and those steps run again — every leaf of params, m and v
+    bit-equal to the uninterrupted run, under
+    ``torch.use_deterministic_algorithms``."""
+    _free_card()
+    cfg = dataclasses.replace(P.configs.get_config(TRAIN_ARCH),
+                              n_layers=RESTART_LAYERS)
+    model = P.archs.build_model(cfg, remat="full", device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    store, vol, _ = _train_world(P, cfg, seed)
+    torch.use_deterministic_algorithms(True)
+    try:
+        _zero_counts(P)                  # the path's run starts here
+        tr = _trainer(P, model, store, vol, seed, RESTART_STEPS,
+                      every=RESTART_EVERY)
+        state = tr.run(tr.init_or_restore(seed)[0], start_step=0)
+        want = {k: t.clone() for k, t in _state_leaves(state).items()}
+        want_losses = [r["loss"] for r in tr.history]
+        tr.loader.close()
+        last = tr.ckpts.saved_steps[-1]
+        for name in store.list_objects(f"ckpt/train/step-{last}/"):
+            store.delete(name)
+        again = _trainer(P, model, store, vol, seed, RESTART_STEPS,
+                         every=RESTART_EVERY)
+        _sync(dev)
+        t = time.perf_counter()
+        state, start = again.init_or_restore(seed)
+        _sync(dev)
+        restore_s = time.perf_counter() - t
+        if start != last - RESTART_EVERY:
+            raise AssertionError(f"restart: restored step {start}")
+        state = again.run(state, start_step=start)
+        again.loader.close()
+        launches = _counts(P)            # ... and ends here
+    finally:
+        torch.use_deterministic_algorithms(False)
+        store.close()
+    got = _state_leaves(state)
+    if sorted(got) != sorted(want):
+        raise AssertionError("restart: the restored state has other leaves")
+    differ = [k for k in want if not _bits_equal(got[k], want[k])]
+    if differ:
+        raise AssertionError(f"restart: {len(differ)} of {len(want)} leaves "
+                             f"differ, e.g. {differ[:4]}")
+    if [r["loss"] for r in again.history] != want_losses[start:]:
+        raise AssertionError("restart: losses differ")
+    ran = RESTART_STEPS + (RESTART_STEPS - start)
+    if launches != {"bitunpack": ran, "filter_agg": 0, "block_agg": 0}:
+        raise AssertionError(f"restart launches {launches}")
+    saves = tr.ckpts.timings + again.ckpts.timings
+    handoff = [r["ckpt_s"] for r in tr.history + again.history
+               if "ckpt_s" in r]
+    nbytes = saves[0]["bytes"]
+    res = {"arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
+           "steps": RESTART_STEPS, "ckpt_every": RESTART_EVERY,
+           "restored_step": start, "leaves": len(want),
+           "bit_equal_leaves": len(want) - len(differ),
+           "losses": want_losses, "ckpt_bytes": nbytes,
+           "saves": saves, "handoff_s": handoff,
+           "save_GB_per_s": [r["bytes"] / (r["snapshot_s"] + r["write_s"])
+                             / 1e9 for r in saves],
+           "restore_s": restore_s,
+           "restore_GB_per_s": nbytes / restore_s / 1e9,
+           "peak_mem_GB": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "launches": launches}
+    print("train restart: " + json.dumps(res), flush=True)
+    print(f"train restart: {cfg.name} {cfg.n_layers} layers, {n_params} "
+          f"params, checkpoint {nbytes} B: saves "
+          + ", ".join(f"{r['snapshot_s'] + r['write_s']:.3f} s" for r in saves)
+          + f" (snapshot + write; {min(res['save_GB_per_s']):.3f}-"
+          f"{max(res['save_GB_per_s']):.3f} GB/s), restore of step {start} "
+          f"{restore_s:.3f} s ({res['restore_GB_per_s']:.3f} GB/s); steps "
+          f"{start}->{RESTART_STEPS} again: {len(want)} of {len(want)} "
+          f"leaves of params, m and v bit-equal  [{card}]", flush=True)
+    del tr, again, state, model, want, got
+    return res
+
+
+def _flash_grads(attention, q, k, v, dout, impl: str):
+    q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+    out = attention.flash_attention(q, k, v, causal=True, impl=impl)
+    return torch.autograd.grad(out, (q, k, v), dout)
+
+
+def flash_path(P, dev, seed: int, card: str) -> dict:
+    """The flash backward (the ``torch.autograd.Function``) against
+    autograd through the checkpointed forward loop (``impl="scan"``) at
+    one full-width layer's shapes, causal, in float32 (gated at
+    ``FLASH_TOL``) and bf16 (printed); both timed, forward + backward."""
+    _free_card()
+    B, S, H, K, hd = FLASH_SHAPE
+    res = {"shape": {"B": B, "S": S, "H": H, "K": K, "hd": hd}}
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, dout = (torch.randn(shape, generator=gen, device=dev,
+                                     dtype=dtype)
+                         for shape in ((B, S, H, hd), (B, S, K, hd),
+                                       (B, S, K, hd), (B, S, H, hd)))
+        got, want = {}, {}
+        for impl in ("vjp", "scan"):
+            torch.cuda.reset_peak_memory_stats(dev)
+            grads = _flash_grads(P.attention, q, k, v, dout, impl)
+            torch.cuda.synchronize(dev)
+            want[impl] = (grads, torch.cuda.max_memory_allocated(dev) / 1e9)
+        errs = {n: float((a.float() - b.float()).abs().max())
+                for n, a, b in zip("qkv", want["vjp"][0], want["scan"][0])}
+        ok = all(torch.allclose(a.float(), b.float(), rtol=FLASH_TOL,
+                                atol=FLASH_TOL)
+                 for a, b in zip(want["vjp"][0], want["scan"][0]))
+        for impl in ("vjp", "scan"):
+            got[impl] = cuda_ms(
+                lambda impl=impl: _flash_grads(P.attention, q, k, v, dout,
+                                               impl), 3)
+        name = str(dtype).removeprefix("torch.")
+        res[name] = {"max_abs_err": errs, "within_tol": ok,
+                     "vjp_ms": got["vjp"], "scan_ms": got["scan"],
+                     "vjp_peak_GB": want["vjp"][1],
+                     "scan_peak_GB": want["scan"][1]}
+        del q, k, v, dout, want
+        if dtype == torch.float32 and not ok:
+            raise AssertionError(f"flash backward: vjp vs scan {errs} "
+                                 f"outside rtol/atol {FLASH_TOL}")
+    print("flash backward: " + json.dumps(res), flush=True)
+    for name in ("float32", "bfloat16"):
+        r = res[name]
+        print(f"flash backward {name} (B {B}, S {S}, H {H}, K {K}, hd {hd},"
+              f" causal): dq/dk/dv max |vjp - scan| "
+              f"{max(r['max_abs_err'].values())!r}"
+              + (f" (gate {FLASH_TOL})" if name == "float32" else
+                 " (printed, no gate)")
+              + f"; forward + backward vjp {r['vjp_ms']:.3f} ms "
+              f"({r['vjp_peak_GB']:.3f} GB peak), scan {r['scan_ms']:.3f} ms"
+              f" ({r['scan_peak_GB']:.3f} GB)  [{card}]", flush=True)
+    return res
+
+
+# --------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -1611,6 +1930,11 @@ def main(argv=None) -> int:
                     help="main-path table rows as a power of two")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    # before CUDA starts: cuBLAS's workspace for the deterministic
+    # restart, and growable segments for the full-width train step
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1740,20 +2064,25 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     planes["serve"] = serve_path(P, dev, args.seed, card)
+    planes["train"] = train_path(P, dev, args.seed, card)
+    planes["train restart"] = restart_path(P, dev, args.seed, card)
+    flash_path(P, dev, args.seed, card)
 
     scans = {"scan": res["launches"],
              "packed ingest": ing["launches"]["bitunpack"],
              **{name: planes[name]["launches"]["bitunpack"]
-                for name in PLANE_PATHS if "launches" in planes[name]}}
+                for name in PLANE_PATHS + TRAIN_PATHS
+                if "launches" in planes[name]}}
     launches = {"bitunpack": sum(scans.values()),
                 "filter_agg": pd["launches"]["filter_agg"],
                 "block_agg": pd["launches"]["block_agg"]}
     print(f"launches per path: scan bitunpack {res['launches']}; device "
           f"pushdown {pd['launches']}; packed ingest {ing['launches']}; "
           + "; ".join(f"{name} {planes[name]['launches']}"
-                      for name in PLANE_PATHS
+                      for name in PLANE_PATHS + TRAIN_PATHS
                       if "launches" in planes[name])
-          + "; checkpoint and KV pages launch no kernel")
+          + "; checkpoint and KV pages launch no kernel, nor does the flash"
+          " backward")
     print(f"card: {card}")
     rows = [("bitunpack", "src/repro/kernels/bitunpack.py:52", bu_err, at_obj),
             ("filter_agg", "src/repro/kernels/filter_agg.py:46", fa_err,

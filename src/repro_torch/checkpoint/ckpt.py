@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import json
 import threading
+import time
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any
@@ -196,7 +197,9 @@ class CheckpointManager:
     """Async saves + retention.  ``maybe_save`` snapshots to host (a
     synchronous copy of every leaf, complete before it returns, so a
     train step may mutate the tensors at once) then writes to the store
-    on a background thread so training overlaps the object writes."""
+    on a background thread so training overlaps the object writes.
+    ``timings`` records each save: its step, bytes, the snapshot's wall
+    and the background write's."""
 
     def __init__(self, store: ObjectStore, *, tag: str = "train",
                  every_steps: int = 100, keep: int = 3,
@@ -208,18 +211,26 @@ class CheckpointManager:
         self.policy = policy
         self._pending: threading.Thread | None = None
         self.saved_steps: list[int] = []
+        self.timings: list[dict] = []
 
     def maybe_save(self, state: Any, step: int,
                    extra: dict | None = None) -> bool:
         if step % self.every_steps:
             return False
         self.wait()
+        t = time.perf_counter()
         host_state = pytree.map_with_keys(        # device->host snap
             lambda _key, leaf: pytree.host_copy(leaf), state)
+        rec = {"step": step, "snapshot_s": time.perf_counter() - t,
+               "bytes": sum(leaf.nbytes for _, leaf in
+                            pytree.flatten_with_keys(host_state))}
 
         def work():
+            t = time.perf_counter()
             save(self.store, host_state, step, tag=self.tag,
                  policy=self.policy, extra=extra)
+            rec["write_s"] = time.perf_counter() - t
+            self.timings.append(rec)
             self.saved_steps.append(step)
             self._retire()
 

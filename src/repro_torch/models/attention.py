@@ -1,9 +1,8 @@
 """Attention: GQA/MHA/MQA flash-style blockwise attention and the decode
 paths.
 
-The counterpart of ``repro.models.attention`` (forward only; the flash
-backward and MLA wait for the training slice).  Layouts are the
-reference's:
+The counterpart of ``repro.models.attention`` (MLA waits for a later
+slice).  Layouts are the reference's:
   q weights  (D, H, hd)
   kv weights (D, K, hd)
   o weights  (H, hd, D)
@@ -15,6 +14,11 @@ reference's: scores in float32 from operands upcast before the product,
 masked scores ``s * mask + _NEG * (1 - mask)``, the probabilities cast
 to the values' dtype before the value product, and ``acc / max(l,
 1e-20)``.  Query head h reads KV head h // G (``repeat_interleave``).
+Its backward is the reference's FlashAttention backward
+(``_flash_core_bwd``) as a ``torch.autograd.Function``: scores
+recomputed per block pair from the saved LSE, dq per query block, dk
+and dv accumulated in float32 and folded from the G query heads onto
+their KV head.
 
 Decode attends one query against the cache and writes the new K and V
 into it in place at ``min(pos, S - 1)`` (the reference's
@@ -26,6 +30,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import _param, apply_rope
@@ -49,8 +54,153 @@ def init_attention(cfg: ArchConfig, device=None) -> nn.ParameterDict:
 
 
 # --------------------------------------------------------------------------
-# flash attention (prefill), forward
+# flash attention (train / prefill)
 # --------------------------------------------------------------------------
+#
+# Two implementations, selected by FLASH_IMPL (the reference's switch):
+#   "vjp"  — FlashAttention, a torch.autograd.Function: the forward saves
+#            only (q, k, v, out, LSE); the backward replays the block
+#            loops computing p = exp(s - LSE) directly and accumulates
+#            dq, dk, dv — O(S) residuals, one extra attention pass.
+#   "scan" — autograd through the forward's block loop, each inner step
+#            under torch.utils.checkpoint (the reference checkpoints each
+#            inner scan step): correct, but it keeps every step's carry.
+
+FLASH_IMPL = "vjp"
+
+
+def _blocks(q: torch.Tensor, v: torch.Tensor, block_q: int, block_k: int):
+    Sq, Sk = q.shape[1], v.shape[1]
+    bq, bk = min(block_q, Sq), min(block_k, Sk)
+    if Sq % bq or Sk % bk:
+        raise ValueError(f"flash_attention: lengths {(Sq, Sk)} are not "
+                         f"multiples of the blocks {(bq, bk)}")
+    return bq, bk
+
+
+def _masked_out(causal: bool, q_offset: int, i: int, bq: int,
+                j: int) -> bool:
+    """Whether key block ``j`` is masked for every row of query block
+    ``i``: its p is 0 and its correction exp(0) = 1, so the reference's
+    loop leaves m, l and acc bit-identical past it, and its dq, dk and
+    dv terms are zeros."""
+    return causal and j > q_offset + i + bq - 1
+
+
+def _scores(q_i: torch.Tensor, k_j: torch.Tensor, causal: bool,
+            qp: torch.Tensor, j: int, scale: float):
+    """Scaled float32 scores (B, H, bq, bk) of one block pair, masked as
+    the reference masks them, and the mask (None when not causal)."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q_i, k_j.float()) * scale
+    if not causal:
+        return s, None
+    kp = torch.arange(j, j + k_j.shape[1], device=s.device)
+    mask = (qp[:, None] >= kp[None, :]).float()
+    return s * mask + _NEG * (1.0 - mask), mask
+
+
+def _fwd_step(q_i, k_j, v_j, m, l, acc, qp, j: int, causal: bool,
+              scale: float, G: int):
+    """One online-softmax step: (m, l, acc) after key block ``j``."""
+    k_j = k_j.repeat_interleave(G, dim=2)
+    v_rep = v_j.repeat_interleave(G, dim=2)
+    s, mask = _scores(q_i, k_j, causal, qp, j, scale)
+    m_new = torch.maximum(m, s.amax(-1))
+    p = torch.exp(s - m_new[..., None])
+    if causal:
+        p = p * mask                             # zero masked entries
+    corr = torch.exp(m - m_new)
+    l = l * corr + p.sum(-1)
+    pv = torch.einsum("bhqk,bkhd->bhqd", p.to(v_j.dtype).float(),
+                      v_rep.float())
+    return m_new, l, acc * corr[..., None] + pv
+
+
+def _flash_fwd(q, k, v, causal: bool, q_offset: int, bq: int, bk: int,
+               checkpoint_inner: bool = False):
+    """The block loop: (out (B, Sq, H, hdv) in q's dtype, LSE (B, H, Sq)
+    float32).  ``checkpoint_inner`` runs each step under
+    ``torch.utils.checkpoint`` (the "scan" route's backward)."""
+    B, Sq, H, hd = q.shape
+    _, Sk, K, hdv = v.shape
+    G = H // K
+    scale = hd ** -0.5
+    dev = q.device
+    out = torch.empty((B, Sq, H, hdv), dtype=q.dtype, device=dev)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+    for i in range(0, Sq, bq):
+        q_i = q[:, i:i + bq].float()
+        qp = q_offset + torch.arange(i, i + bq, device=dev)
+        m = torch.full((B, H, bq), _NEG, dtype=torch.float32, device=dev)
+        l = torch.zeros((B, H, bq), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, H, bq, hdv), dtype=torch.float32, device=dev)
+        for j in range(0, Sk, bk):
+            if _masked_out(causal, q_offset, i, bq, j):
+                break
+            args = (q_i, k[:, j:j + bk], v[:, j:j + bk], m, l, acc, qp, j,
+                    causal, scale, G)
+            if checkpoint_inner:
+                m, l, acc = checkpoint(_fwd_step, *args, use_reentrant=False)
+            else:
+                m, l, acc = _fwd_step(*args)
+        l = torch.clamp_min(l, 1e-20)
+        out[:, i:i + bq] = (acc / l[..., None]).transpose(1, 2).to(q.dtype)
+        lse[:, :, i:i + bq] = m + torch.log(l)
+    return out, lse
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``_flash_core_fwd`` / ``_flash_core_bwd`` of the reference."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset, bq, bk):
+        out, lse = _flash_fwd(q, k, v, causal, q_offset, bq, bk)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, q_offset, bq, bk)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, q_offset, bq, bk = ctx.args
+        B, Sq, H, hd = q.shape
+        _, Sk, K, hdv = v.shape
+        G = H // K
+        scale = hd ** -0.5
+        dev = q.device
+        # D_i = rowsum(dout * out) in float32, the softmax-grad diagonal
+        D = torch.einsum("bshd,bshd->bhs", dout.float(), out.float())
+        dq = torch.empty_like(q)
+        dk = torch.zeros((B, Sk, K, hd), dtype=torch.float32, device=dev)
+        dv = torch.zeros((B, Sk, K, hdv), dtype=torch.float32, device=dev)
+        for i in range(0, Sq, bq):
+            q_i = q[:, i:i + bq].float()
+            do_i = dout[:, i:i + bq].float()
+            L_i = lse[:, :, i:i + bq, None]
+            D_i = D[:, :, i:i + bq, None]
+            qp = q_offset + torch.arange(i, i + bq, device=dev)
+            dq_i = torch.zeros((B, bq, H, hd), dtype=torch.float32,
+                               device=dev)
+            for j in range(0, Sk, bk):
+                if _masked_out(causal, q_offset, i, bq, j):
+                    break
+                k_rep = k[:, j:j + bk].repeat_interleave(G, dim=2).float()
+                v_rep = v[:, j:j + bk].repeat_interleave(G, dim=2).float()
+                s, mask = _scores(q_i, k_rep, causal, qp, j, scale)
+                p = torch.exp(s - L_i)                  # (B, H, bq, bk)
+                if causal:
+                    p = p * mask
+                dp = torch.einsum("bqhd,bkhd->bhqk", do_i, v_rep)
+                ds = p * (dp - D_i) * scale
+                dq_i = dq_i + torch.einsum("bhqk,bkhd->bqhd", ds, k_rep)
+                # fold the G query heads of a group onto their KV head
+                dk_j = torch.einsum("bhqk,bqhd->bkhd", ds, q_i)
+                dv_j = torch.einsum("bhqk,bqhd->bkhd", p, do_i)
+                dk[:, j:j + bk] += dk_j.reshape(B, -1, K, G, hd).sum(3)
+                dv[:, j:j + bk] += dv_j.reshape(B, -1, K, G, hdv).sum(3)
+            dq[:, i:i + bq] = dq_i.to(q.dtype)
+        return dq, dk.to(k.dtype), dv.to(v.dtype), None, None, None, None
 
 
 def flash_attention(
@@ -62,50 +212,16 @@ def flash_attention(
     q_offset: int = 0,        # absolute position of q[0] (prefill cont.)
     block_q: int = 512,
     block_k: int = 512,
+    impl: str | None = None,
 ) -> torch.Tensor:
-    B, Sq, H, hd = q.shape
-    _, Sk, K, hdv = v.shape
-    G = H // K
-    scale = hd ** -0.5
-    bq, bk = min(block_q, Sq), min(block_k, Sk)
-    if Sq % bq or Sk % bk:
-        raise ValueError(f"flash_attention: lengths {(Sq, Sk)} are not "
-                         f"multiples of the blocks {(bq, bk)}")
-    dev = q.device
-    out = torch.empty((B, Sq, H, hdv), dtype=q.dtype, device=dev)
-    for i in range(0, Sq, bq):
-        q_i = q[:, i:i + bq].float()
-        qp = q_offset + torch.arange(i, i + bq, device=dev)
-        m = torch.full((B, H, bq), _NEG, dtype=torch.float32, device=dev)
-        l = torch.zeros((B, H, bq), dtype=torch.float32, device=dev)
-        acc = torch.zeros((B, H, bq, hdv), dtype=torch.float32, device=dev)
-        for j in range(0, Sk, bk):
-            if causal and j > q_offset + i + bq - 1:
-                # every key from here on is masked for every row of the
-                # block: its p is 0 and its correction exp(0) = 1, so
-                # the rest of the reference's loop leaves m, l and acc
-                # bit-identical
-                break
-            k_j = k[:, j:j + bk].repeat_interleave(G, dim=2)
-            v_j = v[:, j:j + bk].repeat_interleave(G, dim=2)
-            s = torch.einsum("bqhd,bkhd->bhqk", q_i, k_j.float()) * scale
-            if causal:
-                kp = torch.arange(j, j + bk, device=dev)
-                mask = (qp[:, None] >= kp[None, :]).float()
-                s = s * mask + _NEG * (1.0 - mask)
-            m_new = torch.maximum(m, s.amax(-1))
-            p = torch.exp(s - m_new[..., None])
-            if causal:
-                p = p * mask                     # zero masked entries
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(-1)
-            pv = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(),
-                              v_j.float())
-            acc = acc * corr[..., None] + pv
-            m = m_new
-        o = acc / torch.clamp_min(l, 1e-20)[..., None]
-        out[:, i:i + bq] = o.transpose(1, 2).to(q.dtype)
-    return out
+    bq, bk = _blocks(q, v, block_q, block_k)
+    impl = impl or FLASH_IMPL
+    if impl == "vjp":
+        return _FlashAttention.apply(q, k, v, causal, q_offset, bq, bk)
+    if impl != "scan":
+        raise ValueError(f"flash_attention: unknown impl {impl!r}")
+    return _flash_fwd(q, k, v, causal, q_offset, bq, bk,
+                      checkpoint_inner=torch.is_grad_enabled())[0]
 
 
 # --------------------------------------------------------------------------

@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 
@@ -143,7 +144,26 @@ def init_embed(cfg: ArchConfig, device=None) -> nn.ParameterDict:
 
 
 def embed_tokens(p, tokens: torch.Tensor, dtype) -> torch.Tensor:
-    return p["tok"][tokens.long()].to(dtype)
+    """Rows of ``p["tok"]``, negative ids counting from the end as
+    ``jnp.take`` counts them.  ``F.embedding`` is that gather; its
+    backward sums each row's gradients in a fixed order on the card
+    (indexing's backward would be an accumulating ``index_put_``)."""
+    ids = tokens.long()
+    ids = torch.where(ids < 0, ids + p["tok"].shape[0], ids)
+    return F.embedding(ids, p["tok"]).to(dtype)
+
+
+def _xent_chunk(h: torch.Tensor, head_f: torch.Tensor, lab: torch.Tensor):
+    """One chunk's (nll sum, z sum, count, correct) as 0-d float32."""
+    logits = h.float() @ head_f                           # (B, c, V)
+    lab = lab.long()
+    lse = torch.logsumexp(logits, dim=-1)                 # (B, c)
+    hit = torch.arange(logits.shape[-1],
+                       device=logits.device) == lab[..., None]
+    tgt = torch.where(hit, logits, 0.0).sum(-1)
+    mask = (lab >= 0).float()
+    return (((lse - tgt) * mask).sum(), (lse.square() * mask).sum(),
+            mask.sum(), ((logits.argmax(-1) == lab).float() * mask).sum())
 
 
 def chunked_softmax_xent(
@@ -154,8 +174,11 @@ def chunked_softmax_xent(
     chunk: int = 1024,
     z_loss: float = 1e-4,
 ):
-    """Cross entropy with the vocab projection in S-chunks (forward):
-    the (B, chunk, V) float32 logits block is the peak, never (B, S, V).
+    """Cross entropy with the vocab projection in S-chunks: the
+    (B, chunk, V) float32 logits block is the peak, never (B, S, V).
+    Each chunk runs under ``torch.utils.checkpoint`` (the reference's
+    ``jax.checkpoint(body)``), so the backward recomputes one chunk's
+    logits at a time instead of keeping every chunk's.
     Returns ``(loss, {"nll", "accuracy", "tokens"})`` as 0-d float32."""
     B, S, D = hidden.shape
     n_chunks = max(S // chunk, 1)
@@ -166,18 +189,10 @@ def chunked_softmax_xent(
     zero = torch.zeros((), dtype=torch.float32, device=hidden.device)
     loss_sum, z_sum, cnt, correct = zero, zero, zero, zero
     for c in range(n_chunks):
-        logits = hs[:, c].float() @ head_f                   # (B, c, V)
-        lab = ls[:, c].long()
-        lse = torch.logsumexp(logits, dim=-1)                 # (B, c)
-        hit = torch.arange(logits.shape[-1],
-                           device=logits.device) == lab[..., None]
-        tgt = torch.where(hit, logits, 0.0).sum(-1)
-        mask = (lab >= 0).float()
-        loss_sum = loss_sum + ((lse - tgt) * mask).sum()
-        z_sum = z_sum + (lse.square() * mask).sum()
-        cnt = cnt + mask.sum()
-        correct = correct + ((logits.argmax(-1) == lab).float()
-                             * mask).sum()
+        nll, z, n, hit = checkpoint(_xent_chunk, hs[:, c], head_f, ls[:, c],
+                                    use_reentrant=False)
+        loss_sum, z_sum = loss_sum + nll, z_sum + z
+        cnt, correct = cnt + n, correct + hit
     cnt = torch.clamp_min(cnt, 1.0)
     loss = loss_sum / cnt + z_loss * z_sum / cnt
     metrics = {"nll": loss_sum / cnt, "accuracy": correct / cnt,

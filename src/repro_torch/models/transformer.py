@@ -3,15 +3,21 @@
 The counterpart of ``repro.models.transformer.TransformerLM`` for
 ``attention="gqa"`` without experts:
 
-  model = build_model(cfg, device=...)       # repro_torch.models.archs
+  model = build_model(cfg, remat=..., device=...)  # models.archs
   model.init(generator)                      # seeded, in place
+  shapes, specs = model.abstract()           # meta tensors + specs
   loss, metrics = model.loss(batch)          # forward + chunked CE
   logits, cache = model.prefill(batch)       # build the decode cache
   logits, cache = model.decode_step(tokens, cache)
   cache, cache_specs = model.abstract_cache(B, S)   # meta tensors + specs
 
 Layers are ``Block`` modules in an ``nn.ModuleList``, run one after the
-other (the reference scans one stacked block).  The decode cache is the
+other (the reference scans one stacked block); in ``loss`` each block
+runs under the ``remat`` policy: ``"none"``, ``"full"``
+(``torch.utils.checkpoint``: the backward recomputes the block) or
+``"dots"`` (selective checkpointing that saves the outputs of matrix
+products without batch dimensions, jax's
+``dots_with_no_batch_dims_saveable``).  The decode cache is the
 reference's: a dict of stacked ``(L, B, S, K, hd)`` tensors ``k`` and
 ``v`` (int8 plus ``(L, B, S, K)`` float32 ``k_scale``/``v_scale`` when
 ``KV_CACHE_QUANT``) and a 0-d int32 ``pos``, so its KV pages have the
@@ -21,14 +27,20 @@ and V into the cache it is given, in place, and returns it with
 
 ``params_from_reference`` / ``params_to_reference`` move weights from
 and to the reference's params tree (numpy leaves, ``blocks`` stacked on
-a leading L axis).
+a leading L axis); ``train_state_from_reference`` /
+``train_state_to_reference`` do the same for a whole train state
+(params, AdamW moments and step).
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.sharding import hint
@@ -47,6 +59,38 @@ from repro_torch.models.layers import (
 # int8 KV cache for GQA decode (per-(token, kv-head) symmetric scales)
 KV_CACHE_QUANT = False
 
+REMAT_POLICIES = ("none", "dots", "full")
+
+# logical-axis specs of each leaf, as the reference's init functions
+# give them (``blocks`` leaves get a leading None for the L axis)
+PARAM_SPECS = {
+    "tok": ("fsdp", None), "head": ("fsdp", "tp"),
+    "scale": (None,), "bias": (None,),
+    "wq": ("fsdp", "tp", None), "wk": ("fsdp", None, None),
+    "wv": ("fsdp", None, None), "wo": ("tp", None, "fsdp"),
+    "w1": ("fsdp", "tp"), "w3": ("fsdp", "tp"), "w2": ("tp", "fsdp"),
+}
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save what a matrix product without batch dimensions outputs (an
+    einsum without one runs as a ``bmm`` of batch 1); recompute the
+    rest."""
+    if op is torch.ops.aten.mm.default or (
+            op is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, policy: str):
+    if policy == "none":
+        return fn
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
+
 
 class Block(nn.Module):
     """One decoder layer: pre-norm attention and MLP, residual adds."""
@@ -63,8 +107,12 @@ class Block(nn.Module):
 class TransformerLM(nn.Module):
     """Families dense, audio (frame embeds in) and vlm (patch + text)."""
 
-    def __init__(self, cfg: ArchConfig, device="cuda"):
+    def __init__(self, cfg: ArchConfig, remat: str = "full",
+                 device="cuda"):
         super().__init__()
+        if remat not in REMAT_POLICIES:
+            raise ValueError(f"remat {remat!r} is not one of "
+                             f"{REMAT_POLICIES}")
         if cfg.moe is not None:
             raise NotImplementedError(
                 f"{cfg.name}: mixture-of-experts layers (models/moe.py) are "
@@ -77,6 +125,7 @@ class TransformerLM(nn.Module):
             raise NotImplementedError(
                 f"{cfg.name}: family {cfg.family!r} is not a TransformerLM")
         self.cfg = cfg
+        self.remat = remat
         self.embed = init_embed(cfg, device)
         self.blocks = nn.ModuleList(Block(cfg, device)
                                     for _ in range(cfg.n_layers))
@@ -103,6 +152,23 @@ class TransformerLM(nn.Module):
             else:
                 dense_init_(p, fan_in.get(leaf, p.shape[0]), generator)
         return self
+
+    def abstract(self):
+        """(params as meta tensors, logical-axis specs), both in the
+        reference's tree layout (``blocks`` stacked on L)."""
+        L = len(self.blocks)
+        shapes: dict = {}
+        specs: dict = {}
+        for (top, k), p in _top_items(self):
+            shapes.setdefault(top, {})[k] = torch.empty(
+                p.shape, dtype=p.dtype, device="meta")
+            specs.setdefault(top, {})[k] = PARAM_SPECS[k]
+        for (part, k), p in _block_items(self.blocks[0]):
+            shapes.setdefault("blocks", {}).setdefault(part, {})[k] = \
+                torch.empty((L, *p.shape), dtype=p.dtype, device="meta")
+            specs.setdefault("blocks", {}).setdefault(part, {})[k] = \
+                (None, *PARAM_SPECS[k])
+        return shapes, specs
 
     # ------------------------------------------------------------ embed
     def _embed(self, batch) -> torch.Tensor:
@@ -139,11 +205,15 @@ class TransformerLM(nn.Module):
         return h[:, -1].float() @ self.embed["head"].float()
 
     # ------------------------------------------------------------ train
+    def _train_block(self, blk: Block, h, positions):
+        return self._block_fwd(blk, h, positions)[0]
+
     def loss(self, batch):
         h = self._embed(batch)
         positions = self._positions(h)
+        block = _remat(self._train_block, self.remat)
         for blk in self.blocks:
-            h, _ = self._block_fwd(blk, h, positions)
+            h = block(blk, h, positions)
         h = apply_norm(self.cfg, self.final_norm, h)
         loss, metrics = chunked_softmax_xent(h, self.embed["head"],
                                              batch["labels"])
@@ -247,6 +317,14 @@ def _from_numpy(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a.copy())
 
 
+def _leaf(a) -> torch.Tensor:
+    """A reference tree's leaf as a tensor: tensors as they are (a
+    restored checkpoint's), anything else through numpy."""
+    if isinstance(a, torch.Tensor):
+        return a.detach()
+    return _from_numpy(np.asarray(a))
+
+
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:         # numpy has no bf16: exact in f32
@@ -271,14 +349,14 @@ def _block_items(blk: Block):
 
 @torch.no_grad()
 def params_from_reference(model: TransformerLM, tree) -> TransformerLM:
-    """Fill ``model`` from the reference's params tree (numpy-convertible
-    leaves; ``blocks`` stacked on a leading L axis), each leaf cast to
-    its parameter's dtype on its device."""
+    """Fill ``model`` from the reference's params tree (tensors or
+    numpy-convertible leaves; ``blocks`` stacked on a leading L axis),
+    each leaf cast to its parameter's dtype on its device."""
     for path, p in _top_items(model):
-        p.copy_(_from_numpy(np.asarray(tree[path[0]][path[1]])))
+        p.copy_(_leaf(tree[path[0]][path[1]]))
     blocks = tree["blocks"]
     for (part, k), _ in _block_items(model.blocks[0]):
-        stacked = _from_numpy(np.asarray(blocks[part][k]))
+        stacked = _leaf(blocks[part][k])
         if stacked.shape[0] != len(model.blocks):
             raise ValueError(f"blocks/{part}/{k}: {stacked.shape[0]} "
                              f"layers, the model has {len(model.blocks)}")
@@ -300,3 +378,80 @@ def params_to_reference(model: TransformerLM) -> dict:
             [_to_numpy(getattr(blk, part)[k]) for blk in model.blocks])
     tree["blocks"] = blocks
     return tree
+
+
+# --------------------------------------------------------------------------
+# the reference's train state: {"params", "opt": {"m", "v", "step"}}
+# --------------------------------------------------------------------------
+
+
+def _ref_path(name: str) -> tuple[tuple[str, ...], int | None]:
+    """A parameter's name in the module (``blocks.3.attn.wq``) as its
+    path in the reference's tree and its layer (None above the stack)."""
+    parts = name.split(".")
+    if parts[0] == "blocks":
+        return ("blocks", parts[2], parts[3]), int(parts[1])
+    return tuple(parts), None
+
+
+def _reference_tree(leaves: dict[str, torch.Tensor]) -> dict:
+    """Leaves keyed by parameter name -> the reference's nested tree of
+    fresh host tensors, each ``blocks`` leaf stacked on L (copied layer
+    by layer into one host tensor, so the card holds no second copy)."""
+    tree: dict = {}
+    layers: dict[tuple, dict[int, torch.Tensor]] = {}
+    for name, t in leaves.items():
+        path, layer = _ref_path(name)
+        if layer is None:
+            tree.setdefault(path[0], {})[path[1]] = \
+                t.detach().to("cpu", copy=True)
+        else:
+            layers.setdefault(path, {})[layer] = t.detach()
+    for (_, part, k), by_layer in layers.items():
+        first = by_layer[0]
+        out = torch.empty((len(by_layer), *first.shape), dtype=first.dtype)
+        for i in range(len(by_layer)):
+            out[i].copy_(by_layer[i])
+        tree.setdefault("blocks", {}).setdefault(part, {})[k] = out
+    return tree
+
+
+def train_state_to_reference(state: dict) -> dict:
+    """The reference's train-state tree of a port train state
+    (``steps.init_train_state``): params, ``m`` and ``v`` with
+    ``blocks`` stacked on L, and ``step``; fresh host tensors in the
+    state's dtypes (bf16 stays bf16), the layout a train checkpoint
+    keeps."""
+    opt = state["opt"]
+    return {"params": _reference_tree(state["params"]),
+            "opt": {"m": _reference_tree(opt["m"]),
+                    "v": _reference_tree(opt["v"]),
+                    "step": opt["step"].detach().to("cpu", copy=True)}}
+
+
+def train_state_from_reference(model: TransformerLM, tree) -> dict:
+    """A port train state from the reference's tree (numpy-convertible
+    or tensor leaves): the params are copied into ``model``, which the
+    state then holds; ``m``, ``v`` (their stored dtype) and ``step``
+    (0-d int32) land on the model's device."""
+    params_from_reference(model, tree["params"])
+    params = dict(model.named_parameters())
+    dev = model.device
+
+    def moments(sub) -> dict[str, torch.Tensor]:
+        out = {}
+        for name in params:
+            path, layer = _ref_path(name)
+            leaf = sub
+            for key in path:
+                leaf = leaf[key]
+            t = _leaf(leaf)
+            out[name] = (t if layer is None else t[layer]).to(
+                dev, copy=True)
+        return out
+
+    opt = tree["opt"]
+    step = _leaf(opt["step"]).to(device=dev, dtype=torch.int32)
+    return {"params": params,
+            "opt": {"m": moments(opt["m"]), "v": moments(opt["v"]),
+                    "step": step.reshape(())}}

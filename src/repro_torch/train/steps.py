@@ -1,0 +1,118 @@
+"""Train and eval step builders, the counterpart of ``repro.train.steps``.
+
+A train state is ``{"params", "opt": {"m", "v", "step"}}`` with every
+tree keyed by the model's parameter names (``blocks.3.attn.wq``); its
+``params`` are the model's own parameters, which ``model.loss`` reads
+and the step updates in place.  ``models.transformer.
+train_state_to_reference`` / ``train_state_from_reference`` move it to
+and from the reference's layout (``blocks`` stacked on L), the layout
+train checkpoints keep.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.train.optimizer import (
+    OptConfig,
+    abstract_opt_state,
+    adamw_update,
+    init_opt_state,
+    opt_state_specs,
+)
+
+
+def reference_decay(params: dict) -> dict[str, bool]:
+    """Where the reference's AdamW decays: at ``p.ndim >= 2`` in its
+    tree, where each block leaf is stacked on L.  So every block leaf
+    decays, norm scales included, and of the leaves above the stack
+    only the 1-D ones (the final norm) do not."""
+    return {n: p.ndim + n.startswith("blocks.") >= 2
+            for n, p in params.items()}
+
+
+def make_train_step(model, opt_cfg: OptConfig, *, microbatches: int = 1):
+    """Returns ``train_step(state, batch) -> (state, metrics)``; the
+    state is updated in place and returned.
+
+    Gradients come from ``torch.autograd.grad`` of ``model.loss``.
+    ``microbatches > 1`` runs gradient accumulation: the global batch is
+    split on dim 0 and run sequentially, each micro-batch's gradients
+    added into float32 accumulators (as the reference's scan does), so
+    live activations shrink by the factor while the math stays the
+    reference's.  Metrics are 0-d tensors: ``loss``, ``nll``,
+    ``accuracy``, ``tokens``, ``aux_loss``, ``grad_norm`` and ``step``.
+    """
+
+    def grad_fn(params: dict, batch: dict):
+        loss, metrics = model.loss(batch)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return loss.detach(), metrics, dict(zip(params, grads))
+
+    def train_step(state: dict, batch: dict):
+        params = state["params"]
+        if microbatches == 1:
+            loss, metrics, grads = grad_fn(params, batch)
+        else:
+            mb = {k: x.reshape(microbatches, x.shape[0] // microbatches,
+                               *x.shape[1:]) for k, x in batch.items()}
+            grads = {n: torch.zeros(p.shape, dtype=torch.float32,
+                                    device=p.device)
+                     for n, p in params.items()}
+            loss, metrics = None, None
+            for i in range(microbatches):
+                l_i, m_i, g_i = grad_fn(params,
+                                        {k: x[i] for k, x in mb.items()})
+                for n, g in g_i.items():
+                    grads[n].add_(g.float())
+                del g_i
+                loss = l_i if loss is None else loss + l_i
+                metrics = m_i if metrics is None else {
+                    k: metrics[k] + m_i[k] for k in metrics}
+            k = float(microbatches)
+            grads = {n: g / k for n, g in grads.items()}
+            loss = loss / k
+            metrics = {n: m / k for n, m in metrics.items()}
+
+        _, opt, gnorm = adamw_update(opt_cfg, grads, params, state["opt"],
+                                     decay=reference_decay(params))
+        metrics = dict(metrics)
+        metrics.update({"loss": loss, "grad_norm": gnorm,
+                        "step": opt["step"].clone()})
+        return state, metrics
+
+    return train_step
+
+
+def make_eval_step(model):
+    @torch.no_grad()
+    def eval_step(batch):
+        loss, metrics = model.loss(batch)
+        return dict(metrics, loss=loss)
+    return eval_step
+
+
+def init_train_state(model, generator: torch.Generator,
+                     opt_dtype=torch.float32) -> dict:
+    """Seeded weights (``model.init``) and zero moments: the state holds
+    the model's own parameters."""
+    model.init(generator)
+    params = dict(model.named_parameters())
+    return {"params": params, "opt": init_opt_state(params, opt_dtype)}
+
+
+def abstract_train_state(model, opt_dtype=torch.float32):
+    """(state as meta tensors, state specs), in the reference's layout
+    (``blocks`` stacked on L) — what a train checkpoint holds; no
+    allocation."""
+    shapes, specs = model.abstract()
+    return ({"params": shapes, "opt": abstract_opt_state(shapes, opt_dtype)},
+            {"params": specs, "opt": opt_state_specs(specs)})
+
+
+def metric_specs(metrics_tree: Any):
+    """Every metric replicated."""
+    return {k: () for k in metrics_tree}

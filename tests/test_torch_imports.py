@@ -48,7 +48,10 @@ def test_import_pulls_in_no_jax_and_no_reference():
             "repro_torch.models.attention", "repro_torch.models.inputs",
             "repro_torch.models.transformer", "repro_torch.models.archs",
             "repro_torch.serve.engine", "repro_torch.serve.steps",
-            "repro_torch.launch", "repro_torch.launch.serve"} <= set(mods)
+            "repro_torch.launch", "repro_torch.launch.serve",
+            "repro_torch.train", "repro_torch.train.optimizer",
+            "repro_torch.train.steps", "repro_torch.train.trainer",
+            "repro_torch.launch.train"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
