@@ -66,12 +66,12 @@
     through ``engine.analytics`` (a ``ScanSession``), equal to numpy.
     Then the prefill/decode invariant of ``tests/test_models.py``
     (prefill of 512 tokens and 512 teacher-forced decode steps against
-    prefill of all 1024, batch 2) at full width and depth in float32,
-    held to rtol/atol 2e-2; the same check in bf16 (448 + 64 against
-    512) is printed without a gate.
-14. Train, full width: yi_9b at its published widths with 24 of its 48
-    layers (4,676,849,664 parameters; bf16 params and grads and float32
-    AdamW moments are 56.1 GB), ``remat="full"``, random weights from
+    prefill of all 1024, batch 2) at full width in float32 with 24 of
+    the 48 layers, held to rtol/atol 2e-2; the same check in bf16 at
+    full depth (448 + 64 against 512) is printed without a gate.
+14. Train, full width: yi_9b at its published widths with 8 of its 48
+    layers (1,908,477,952 parameters; bf16 params and grads and float32
+    AdamW moments are 22.9 GB), ``remat="full"``, random weights from
     ``--seed``.  A 1024 x 4096-token corpus built from ``--seed`` into a
     fresh 8-OSD, 2-replica store in one ``build_corpus`` call; a packed,
     prefetching ``ObjectDataLoader`` feeding ``Trainer(packed_ingest=
@@ -91,12 +91,34 @@
     full-width layer's shapes (B 1, S 4096, H 32, K 4, hd 128, causal):
     dq, dk, dv within rtol/atol 1e-4 in float32, printed in bf16; both
     routes timed.
+17. Mixture-of-experts serve: deepseek_v2_lite_16b at its published
+    widths and depth (27 layers, d_model 2048, MLA with kv_lora_rank 512
+    and 16 heads of 128 + 64, layer 0 dense, 26 layers of 64 routed
+    experts top-6 and 2 shared; 15,706,470,400 parameters, 31.42 GB),
+    bf16, random weights from ``--seed``, through the same requests,
+    engine, park/resume (a 1,019,215,872 B latent cache, ``ckv`` and
+    ``krope``) and analytics as yi_9b; the decode step beside its
+    memory bound (every expert's weights are read each step); the
+    shipped config's bf16 invariant (448 + 64 against 512, capacity
+    factor 1.25) printed without a gate.
+18. Mixture-of-experts invariant: the same model in float32 (62.8 GB of
+    weights), whole, at capacity factor n_routed / top_k (no token
+    dropped in prefill, as decode drops none): 512 + 512 against 1024,
+    batch 2, held to rtol/atol 2e-2.
+19. Mixture-of-experts train: deepseek_v2_lite_16b's widths with its
+    dense layer and 5 MoE layers (3,424,675,840 parameters, ~41 GB of
+    bf16 params and grads and float32 moments), the yi_9b train phase's
+    corpus (vocabulary 102,400: bitpack17), steps, batch and lr; every
+    loss and ``aux_loss`` finite, ``aux_loss`` > 0, the last loss below
+    the first; model FLOPs (top-6 + 2 shared experts) beside the FLOPs
+    as run (every expert's capacity slots).
 
 Each path runs with the kernels' launch counts set to 0 just before it
 and read just after; every kernel of a path must have launched (the
 checkpoint and KV paths decode nothing and launch no kernel, nor does
 the flash backward; the serve path launches ``bitunpack`` in its
-analytics scans, the train paths once a step).  The
+analytics scans, the train paths once a step; so do the mixture-of-
+experts serve and train paths, and the invariants launch none).  The
 line before the last two is the ``kernels`` JSON object; the last line
 is ``{"ok": true, "device": {...}}``; any failure raises and the exit
 code is non-zero.  Needs a CUDA device and a checkout of the
@@ -148,23 +170,39 @@ SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT = "yi_9b", 8, (256, 1024)
 SERVE_MAX_NEW, SERVE_MAX_SEQ = 32, 4096
 SERVE_LOG_ROWS_LOG2 = 26       # the request log's rows
 SERVE_CLIENTS = 8
-# the invariant of tests/test_models.py:57-86 at full size: (prefill,
-# decode steps) per dtype; float32 is held to the reference's 2e-2
+# the invariant of tests/test_models.py:57-86 at full width: (prefill,
+# decode steps) per dtype; float32 is held to the reference's 2e-2, for
+# yi_9b at 24 of its 48 layers (all 48 took 57 s of the script's time)
 INVARIANT_F32, INVARIANT_BF16, INVARIANT_TOL = (512, 512), (448, 64), 2e-2
-# train: yi_9b at its published widths, 24 of its 48 layers (bf16 params
-# and grads with float32 AdamW moments are 56.1 GB; all 48 need ~106 GB
-# before activations), 4 x 4096 tokens a step, packed ingest from a
+SERVE_F32_LAYERS = 24
+# train: yi_9b at its published widths, 8 of its 48 layers (bf16 params
+# and grads with float32 AdamW moments are 22.9 GB; all 48 need ~106 GB
+# before activations; 24 took ~7.3 s a step, and the script's time goes
+# to the phases after it), 4 x 4096 tokens a step, packed ingest from a
 # 1024-sequence corpus; the launcher's warmup rule (max(steps // 10, 2))
 # at lr 1e-4: from random weights at this width the launcher's 1e-3, and
 # 3e-4, end 8 steps above the first loss (11.82 -> 12.73 and 13.83 on an
 # H100), 1e-4 below it (9.47)
-TRAIN_ARCH, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = "yi_9b", 24, 4, 4096
+TRAIN_ARCH, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = "yi_9b", 8, 4, 4096
 TRAIN_SEQS, TRAIN_STEPS, TRAIN_LR = 1024, 8, 1e-4
+TRAIN_WHY = ("bf16 params and grads with float32 AdamW moments of all of "
+             "them need ~106 GB before activations, more than one card's "
+             "80 GB; 8 keep the script's time for the phases after it")
 # the restart: 2 layers, 4 steps with a checkpoint every 2 (keep 2)
 RESTART_LAYERS, RESTART_STEPS, RESTART_EVERY = 2, 4, 2
 # the flash backward at one full-width layer's shapes: B, S, H, K, hd
 FLASH_SHAPE, FLASH_TOL = (1, 4096, 32, 4, 128), 1e-4
 BF16_PEAK_FLOPS = 989e12       # H100 SXM data sheet, dense
+# mixture of experts and MLA: deepseek_v2_lite_16b (src/repro/configs/
+# deepseek_v2_lite_16b.py:17-46) served whole, as yi_9b is (the same
+# requests and cache slots: 27 x 8 x 4096 x (512 + 64) bf16 latents),
+# its float32 invariant whole, and trained at full width with its dense
+# layer and 5 of its 26 MoE layers (3,424,675,840 parameters: bf16
+# params and grads and float32 moments ~41 GB; all 27 layers ~188 GB)
+MOE_ARCH, MOE_TRAIN_LAYERS = "deepseek_v2_lite_16b", 6
+MOE_KV_BYTES = 27 * SERVE_BATCH * SERVE_MAX_SEQ * (512 + 64) * 2
+MOE_TRAIN_WHY = ("bf16 params and grads with float32 AdamW moments of all "
+                 "15.7 B parameters need ~188 GB, more than one card's 80 GB")
 
 
 def _load_port():
@@ -184,7 +222,7 @@ def _load_port():
     from repro_torch.kernels import bitunpack as bu
     from repro_torch.kernels import block_agg as ba
     from repro_torch.kernels import filter_agg as fa
-    from repro_torch.models import archs, attention
+    from repro_torch.models import archs, attention, moe
     from repro_torch.serve import engine, kvcache
     from repro_torch.train import optimizer, trainer
     return argparse.Namespace(
@@ -192,7 +230,7 @@ def _load_port():
         build=_build, pushdown=pushdown_torch, corpus=corpus,
         pipeline=pipeline, ingest=fused_ingest, elastic=elastic,
         ckpt=ckpt, kvcache=kvcache, pytree=pytree, configs=configs,
-        archs=archs, engine=engine, attention=attention,
+        archs=archs, engine=engine, attention=attention, moe=moe,
         optimizer=optimizer, trainer=trainer)
 
 
@@ -1343,6 +1381,7 @@ def kv_path(P, dev, seed: int) -> dict:
 
 PLANE_PATHS = ("skyhook", "session", "faults", "maintenance", "serve")
 TRAIN_PATHS = ("train", "train restart")
+MOE_PATHS = ("moe serve", "moe train")
 
 
 def table_planes(P, store, table: dict, seed: int, card: str) -> dict:
@@ -1512,16 +1551,11 @@ def _invariant(P, model, dev, n_prefill: int, n_decode: int,
             "within_2e-2": ok, "wall_s": time.perf_counter() - t}
 
 
-def serve_path(P, dev, seed: int, card: str) -> dict:
-    """yi_9b at full width and depth in bf16 through ``ServeEngine``:
-    generate, park and resume the session, the analytics scans; then the
-    prefill/decode invariant in bf16 (printed) and float32 (gated)."""
-    cfg = P.configs.get_config(SERVE_ARCH)
-    t = time.perf_counter()
-    model = P.archs.build_model(cfg, device=dev).init(
-        torch.Generator(device=dev).manual_seed(seed))
-    _sync(dev)
-    init_s = time.perf_counter() - t
+def _serve_run(P, cfg, model, dev, seed: int, card: str) -> dict:
+    """``model`` through ``ServeEngine``: generate the requests, park and
+    resume the session bit-equal, one decode step traced, the analytics
+    scans.  The launch counts are zeroed before the timed generate and
+    read after the analytics."""
     n_params = sum(p.numel() for p in model.parameters())
     store = P.core.make_store(8, replicas=3)
     try:
@@ -1558,10 +1592,11 @@ def serve_path(P, dev, seed: int, card: str) -> dict:
         resume_s = time.perf_counter() - t
         manifest = json.loads(store.get("kv/serve-0/.manifest").decode())
         pages = {k: len(m["pages"]) for k, m in manifest["leaves"].items()}
-        want = SERVE_MAX_SEQ // P.kvcache.PAGE_TOKENS
-        if pages != {"['k']": want, "['pos']": 1, "['v']": want}:
+        want = {f"['{k}']": SERVE_MAX_SEQ // P.kvcache.PAGE_TOKENS
+                for k in cache if k != "pos"}
+        if pages != dict(want, **{"['pos']": 1}):
             raise AssertionError(f"serve KV pages per leaf {pages}")
-        for key in ("k", "v", "pos"):
+        for key in cache:
             if not _bits_equal(back[key], cache[key]):
                 raise AssertionError(f"serve: resumed leaf {key} differs")
         del back
@@ -1578,7 +1613,7 @@ def serve_path(P, dev, seed: int, card: str) -> dict:
             or launches["block_agg"]:
         raise AssertionError(f"serve launches {launches}")
     steps = len(decode_s)
-    res = {"arch": cfg.name, "params": n_params, "init_s": init_s,
+    res = {"arch": cfg.name, "params": n_params,
            "batch": SERVE_BATCH, "prompt_lens": [len(r.prompt)
                                                  for r in reqs],
            "max_new": SERVE_MAX_NEW, "max_seq": SERVE_MAX_SEQ,
@@ -1604,29 +1639,53 @@ def serve_path(P, dev, seed: int, card: str) -> dict:
           f" tokens: prefill {res['prefill_ms']:.3f} ms, decode "
           f"{res['decode_ms_per_step']:.3f} ms per step ({steps} steps, "
           f"{res['decode_tokens_per_s']:.1f} tokens/s; card busy "
-          f"{busy_ms:.3f} ms of a traced {step_s * 1e3:.3f} ms step); KV "
-          f"{nbytes} B park "
+          f"{busy_ms:.3f} ms of a traced {step_s * 1e3:.3f} ms step, "
+          f"{events} device events); peak memory "
+          f"{res['peak_mem_GB']:.3f} GB; KV {nbytes} B park "
           f"{park_s:.3f} s ({res['park_GB_per_s']:.3f} GB/s), resume "
           f"{resume_s:.3f} s ({res['resume_GB_per_s']:.3f} GB/s), bit-equal;"
           f" analytics {ana['clients']} clients {ana['wall_s']:.4f} s, "
           f"executed {ana['stats']['executed']} of "
           f"{ana['stats']['admitted']}, bitunpack launches "
           f"{launches['bitunpack']}  [{card}]", flush=True)
-    del engine, comps, cache
+    return res
+
+
+def _seeded(P, cfg, dev, seed: int):
+    """``cfg``'s model on the card, its weights drawn from ``seed``, and
+    the seconds that took."""
+    t = time.perf_counter()
+    model = P.archs.build_model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(seed))
+    _sync(dev)
+    return model, time.perf_counter() - t
+
+
+def _f32(cfg):
+    return dataclasses.replace(cfg, param_dtype=torch.float32,
+                               compute_dtype=torch.float32)
+
+
+def serve_path(P, dev, seed: int, card: str) -> dict:
+    """yi_9b at full width and depth in bf16 through ``ServeEngine``:
+    generate, park and resume the session, the analytics scans; then the
+    prefill/decode invariant in bf16 (printed) and float32 at
+    ``SERVE_F32_LAYERS`` layers (gated)."""
+    cfg = P.configs.get_config(SERVE_ARCH)
+    model, init_s = _seeded(P, cfg, dev, seed)
+    res = _serve_run(P, cfg, model, dev, seed, card)
+    res["init_s"] = init_s
     res["invariant_bf16"] = _invariant(P, model, dev, *INVARIANT_BF16, seed)
     print("serve invariant (bf16, no gate): "
           + json.dumps(res["invariant_bf16"]), flush=True)
     del model
-    gc.collect()
-    torch.cuda.empty_cache()
-    f32 = dataclasses.replace(cfg, param_dtype=torch.float32,
-                              compute_dtype=torch.float32)
-    model = P.archs.build_model(f32, device=dev).init(
-        torch.Generator(device=dev).manual_seed(seed))
+    _free_card()
+    model, _ = _seeded(P, dataclasses.replace(
+        _f32(cfg), n_layers=SERVE_F32_LAYERS), dev, seed)
     inv = _invariant(P, model, dev, *INVARIANT_F32, seed)
+    inv["layers"] = SERVE_F32_LAYERS
     del model
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free_card()
     res["invariant_f32"] = inv
     print("serve invariant (float32): " + json.dumps(inv), flush=True)
     if not (inv["finite"] and inv["within_2e-2"]):
@@ -1638,8 +1697,101 @@ def serve_path(P, dev, seed: int, card: str) -> dict:
             * torch.bfloat16.itemsize)
     print(f"reduced: serve at batch {SERVE_BATCH} x {SERVE_MAX_SEQ} cache "
           f"slots; decode_32k's batch of {B} x {S} tokens needs "
-          f"{need / 1e9:.1f} GB of KV cache, more than one card's 80 GB")
+          f"{need / 1e9:.1f} GB of KV cache, more than one card's 80 GB; "
+          f"the float32 invariant at {SERVE_F32_LAYERS} of {cfg.n_layers} "
+          f"layers, to keep the script's time for the phases after it")
     return res
+
+
+def moe_decode_bound_ms(model, cache_bytes: int) -> float:
+    """Least time of one decode step at the card's memory rate: every
+    weight read once (each routed expert's too: the experts compute all
+    their C = 8 slots), the token embedding's B rows, the whole latent
+    cache."""
+    cfg = model.cfg
+    tok = model.embed["tok"]
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    nbytes += (SERVE_BATCH - tok.shape[0]) * cfg.d_model * tok.element_size()
+    return (nbytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
+
+
+def moe_serve_path(P, dev, seed: int, card: str) -> dict:
+    """deepseek_v2_lite_16b at full width and depth in bf16 through
+    ``ServeEngine``, as the yi_9b phase runs it (the MLA latent cache
+    parked and resumed); the shipped config's prefill/decode invariant
+    in bf16, printed without a gate."""
+    _free_card()
+    cfg = P.configs.get_config(MOE_ARCH)
+    model, init_s = _seeded(P, cfg, dev, seed)
+    res = _serve_run(P, cfg, model, dev, seed, card)
+    res["init_s"] = init_s
+    kv = res["kv_bytes"] - 4
+    if kv != MOE_KV_BYTES:
+        raise AssertionError(f"moe serve: latent cache {kv} B, want "
+                             f"{MOE_KV_BYTES}")
+    res["decode_bound_ms"] = moe_decode_bound_ms(model, kv)
+    experts = sum(p.numel() * p.element_size()
+                  for n, p in model.named_parameters() if ".moe.w" in n)
+    print(f"moe serve: decode {res['decode_ms_per_step']:.3f} ms per step "
+          f"against a {res['decode_bound_ms']:.3f} ms bound at 3.35 TB/s "
+          f"({experts} B of routed experts read each step, all "
+          f"{cfg.moe.n_routed} in each of {len(model.blocks)} layers, plus "
+          f"the rest of the weights and the {kv} B latent cache)  [{card}]",
+          flush=True)
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    res["invariant_bf16"] = _invariant(P, model, dev, *INVARIANT_BF16, seed)
+    print("moe serve invariant (bf16, capacity factor "
+          f"{cfg.moe.capacity_factor}, no gate): "
+          + json.dumps(res["invariant_bf16"]), flush=True)
+    del model
+    _free_card()
+    shape = P.configs.SHAPES["decode_32k"]
+    B, S = shape.global_batch, shape.seq_len
+    m = cfg.mla
+    need = (cfg.n_layers * B * S * (m.kv_lora_rank + m.qk_rope_head_dim)
+            * torch.bfloat16.itemsize)
+    print(f"reduced: moe serve at batch {SERVE_BATCH} x {SERVE_MAX_SEQ} "
+          f"latent-cache slots; decode_32k's batch of {B} x {S} tokens "
+          f"needs {need / 1e9:.1f} GB of latent cache beside "
+          f"{weights / 1e9:.2f} GB of weights, more than one card's 80 GB")
+    return res
+
+
+def moe_invariant_path(P, dev, seed: int, card: str) -> dict:
+    """The prefill/decode invariant of deepseek_v2_lite_16b at full width
+    and depth in float32 (62.8 GB of weights), gated at
+    ``INVARIANT_TOL``, with a capacity factor of n_routed / top_k so
+    that prefill drops no token (decode never does: C = 8 >= B)."""
+    _free_card()
+    cfg = P.configs.get_config(MOE_ARCH)
+    full = dataclasses.replace(_f32(cfg), moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_routed / cfg.moe.top_k))
+    model, init_s = _seeded(P, full, dev, seed)
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    inv = _invariant(P, model, dev, *INVARIANT_F32, seed)
+    inv.update(init_s=init_s, weight_bytes=nbytes,
+               capacity_factor=full.moe.capacity_factor,
+               peak_mem_GB=torch.cuda.max_memory_allocated(dev) / 1e9)
+    del model
+    _free_card()
+    print("moe invariant (float32): " + json.dumps(inv), flush=True)
+    print(f"moe invariant: {cfg.name} float32 ({nbytes} B of weights), "
+          f"prefill {INVARIANT_F32[0]} + {INVARIANT_F32[1]} decode steps "
+          f"against prefill of {sum(INVARIANT_F32)}, batch 2: max |err| "
+          f"{inv['max_abs_err']!r} of logits up to "
+          f"{inv['max_abs_logit']:.4f}, within {INVARIANT_TOL}: "
+          f"{inv['within_2e-2']}; {inv['wall_s']:.3f} s, peak "
+          f"{inv['peak_mem_GB']:.3f} GB  [{card}]", flush=True)
+    print(f"reduced: moe invariant at capacity factor "
+          f"{full.moe.capacity_factor:.4f} (n_routed / top_k) for the "
+          f"shipped {cfg.moe.capacity_factor}: at 1.25 a "
+          f"{sum(INVARIANT_F32)}-token prefill drops tokens that decode "
+          f"never drops, so the two paths differ by design (the smoke "
+          f"config runs at 8.0 for the same reason)")
+    if not (inv["finite"] and inv["within_2e-2"]):
+        raise AssertionError(f"moe: float32 prefill/decode invariant "
+                             f"fails rtol/atol {INVARIANT_TOL}: {inv}")
+    return inv
 
 
 # --------------------------------------------------------------------------
@@ -1682,29 +1834,49 @@ def _trainer(P, model, store, vol, seed: int, steps: int, every: int):
                              log=lambda msg: print(msg, flush=True))
 
 
-def train_flops(cfg, n_params: int, batch: int, seq: int) -> float:
-    """Model FLOPs of one train step: 6 per matrix-multiplied parameter
-    (all but the token embedding, a gather) per token, plus causal
-    attention's two S x S products per layer, half of them masked,
-    three times over (forward and backward)."""
+def train_flops(P, cfg, model, batch: int, seq: int) -> tuple[float, float]:
+    """(model FLOPs, FLOPs as run) of one train step.  Model FLOPs: 6 per
+    matrix-multiplied parameter a token touches (all but the token
+    embedding, a gather; of the routed experts the top_k a token is sent
+    to) per token, plus causal attention's two S x S products per layer
+    (q.k over the q/k head width, p.v over the v head width), half of
+    them masked, three times over (forward and backward).  As run, each
+    routed expert computes all its C capacity slots instead."""
     tokens = batch * seq
-    dense = 6 * (n_params - cfg.vocab_size * cfg.d_model) * tokens
-    attn = 6 * cfg.n_layers * batch * seq * seq * cfg.n_heads * cfg.head_dim
-    return float(dense + attn)
+    routed = sum(p.numel() for n, p in model.named_parameters()
+                 if ".moe.w" in n)
+    n_params = sum(p.numel() for p in model.parameters())
+    dense = n_params - cfg.vocab_size * cfg.d_model - routed
+    if cfg.attention == "mla":
+        qk = cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim
+        vd = cfg.mla.v_head_dim
+    else:
+        qk = vd = cfg.head_dim
+    attn = 3 * cfg.n_layers * batch * seq * seq * cfg.n_heads * (qk + vd)
+    flops = padded = 6 * dense * tokens + attn
+    if cfg.moe is not None:
+        m = cfg.moe
+        per_slot = 3 * cfg.d_model * m.d_ff_expert     # w1, w3, w2
+        n_moe = len(model.blocks)
+        flops += 6 * tokens * m.top_k * per_slot * n_moe
+        padded += (6 * m.n_routed * P.moe._capacity(tokens, cfg) * per_slot
+                   * n_moe)
+    return float(flops), float(padded)
 
 
-def train_path(P, dev, seed: int, card: str) -> dict:
-    """yi_9b at full width, ``TRAIN_LAYERS`` layers, remat "full": the
+def train_path(P, dev, seed: int, card: str, arch: str = TRAIN_ARCH,
+               layers: int = TRAIN_LAYERS, tag: str = "train",
+               why: str = TRAIN_WHY) -> dict:
+    """``arch`` at full width, ``layers`` layers, remat "full": the
     corpus in the store -> packed loader -> ``fused_batch`` (bitunpack)
     -> train step, ``TRAIN_STEPS`` steps, then one step traced."""
     _free_card()
-    cfg = dataclasses.replace(P.configs.get_config(TRAIN_ARCH),
-                              n_layers=TRAIN_LAYERS)
+    cfg = dataclasses.replace(P.configs.get_config(arch), n_layers=layers)
     model = P.archs.build_model(cfg, remat="full", device=dev)
     n_params = sum(p.numel() for p in model.parameters())
     store, vol, omap = _train_world(P, cfg, seed)
     try:
-        # no checkpoint at this depth: one save is ~47 GB of host copies
+        # no checkpoint at this depth: one save is tens of GB of host copies
         tr = _trainer(P, model, store, vol, seed, TRAIN_STEPS,
                       every=TRAIN_STEPS + 1)
         t = time.perf_counter()
@@ -1712,7 +1884,7 @@ def train_path(P, dev, seed: int, card: str) -> dict:
         _sync(dev)
         init_s = time.perf_counter() - t
         if start != 0:
-            raise AssertionError(f"train: fresh store restored step {start}")
+            raise AssertionError(f"{tag}: fresh store restored step {start}")
         _zero_counts(P)                  # the path's run starts here
         t = time.perf_counter()
         state = tr.run(state, start_step=0)
@@ -1724,6 +1896,7 @@ def train_path(P, dev, seed: int, card: str) -> dict:
     finally:
         store.close()
     losses = [r["loss"] for r in tr.history]
+    aux = [r["aux_loss"] for r in tr.history]
     batch = {"tokens_packed": torch.from_numpy(
         np.ascontiguousarray(words).view(np.int32)).to(dev)}
     busy_ms, step_s, events, top = traced(lambda: tr.train_step(state,
@@ -1731,46 +1904,54 @@ def train_path(P, dev, seed: int, card: str) -> dict:
     walls = [r["wall_s"] for r in tr.history]
     later = walls[1:]
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    flops = train_flops(cfg, n_params, TRAIN_BATCH, TRAIN_SEQ)
+    flops, padded = train_flops(P, cfg, model, TRAIN_BATCH, TRAIN_SEQ)
     mean_s = float(np.mean(later))
     res = {"arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
            "remat": "full", "microbatches": 1, "batch": TRAIN_BATCH,
-           "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+           "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "lr": TRAIN_LR,
            "corpus_sequences": TRAIN_SEQS, "corpus_objects": omap.n_objects,
            "init_s": init_s, "run_s": run_s, "losses": losses,
+           "aux_losses": aux,
            "grad_norms": [r["grad_norm"] for r in tr.history],
            "step_s": walls, "first_step_s": walls[0],
            "step_mean_s": mean_s, "step_median_s": float(np.median(later)),
            "tokens_per_s": tokens / mean_s, "model_flops": flops,
            "bf16_peak_share": flops / mean_s / BF16_PEAK_FLOPS,
+           "flops_as_run": padded,
            "peak_mem_GB": peak / 1e9,
            "traced_step": {"wall_s": step_s, "busy_ms": busy_ms,
                            "busy_share": busy_ms / (step_s * 1e3),
                            "device_events": events, "top_kernels": top},
            "launches": launches}
-    print("train: " + json.dumps(res), flush=True)
-    print(f"train: {cfg.name} {cfg.n_layers} layers, {n_params} params, "
+    print(f"{tag}: " + json.dumps(res), flush=True)
+    print(f"{tag}: {cfg.name} {cfg.n_layers} layers, {n_params} params, "
           f"{TRAIN_STEPS} packed-ingest steps of {TRAIN_BATCH} x "
-          f"{TRAIN_SEQ} tokens: loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
-          f"step {mean_s:.4f} s mean, {res['step_median_s']:.4f} s median "
+          f"{TRAIN_SEQ} tokens: loss {losses[0]:.4f} -> {losses[-1]:.4f}"
+          + (f" (aux {aux[0]:.6f} -> {aux[-1]:.6f})" if cfg.moe else "")
+          + f"; step {mean_s:.4f} s mean, {res['step_median_s']:.4f} s median "
           f"(first {walls[0]:.4f} s), {res['tokens_per_s']:.1f} tokens/s, "
           f"{flops:.4g} model FLOPs a step = "
-          f"{res['bf16_peak_share']:.2%} of the bf16 dense peak; traced "
-          f"step: card busy {busy_ms:.1f} ms of {step_s * 1e3:.1f} ms; peak "
-          f"memory {res['peak_mem_GB']:.3f} GB; bitunpack launches "
+          f"{res['bf16_peak_share']:.2%} of the bf16 dense peak"
+          + (f" ({padded:.4g} as run, every expert's capacity slots "
+             f"computed)" if cfg.moe else "")
+          + f"; traced step: card busy {busy_ms:.1f} ms of "
+          f"{step_s * 1e3:.1f} ms ({events} device events); peak memory "
+          f"{res['peak_mem_GB']:.3f} GB; bitunpack launches "
           f"{launches['bitunpack']}  [{card}]", flush=True)
-    print(f"reduced: train at {TRAIN_LAYERS} of {TRAIN_ARCH}'s "
-          f"{P.configs.get_config(TRAIN_ARCH).n_layers} layers (bf16 "
-          f"params and grads with float32 AdamW moments of all of them need"
-          f" ~106 GB before activations, more than one card's 80 GB) and a "
-          f"global batch of {TRAIN_BATCH} x {TRAIN_SEQ} tokens (train_4k is "
-          f"256 x 4096 on a pod); a {TRAIN_SEQS}-sequence corpus")
+    full = P.configs.get_config(arch)
+    print(f"reduced: {tag} at {layers} of {arch}'s {full.n_layers} layers "
+          f"({why}) and a global batch of {TRAIN_BATCH} x {TRAIN_SEQ} tokens "
+          f"(train_4k is 256 x 4096 on a pod); a {TRAIN_SEQS}-sequence "
+          f"corpus")
     del tr, state, model, batch
     if launches != {"bitunpack": TRAIN_STEPS, "filter_agg": 0,
                     "block_agg": 0}:
-        raise AssertionError(f"train launches {launches}")
+        raise AssertionError(f"{tag} launches {launches}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise AssertionError(f"train: losses {losses}")
+        raise AssertionError(f"{tag}: losses {losses}")
+    if cfg.moe is not None and not all(np.isfinite(a) and a > 0
+                                       for a in aux):
+        raise AssertionError(f"{tag}: aux losses {aux}")
     return res
 
 
@@ -1921,6 +2102,17 @@ def flash_path(P, dev, seed: int, card: str) -> dict:
     return res
 
 
+def moe_paths(P, dev, seed: int, card: str) -> dict:
+    """deepseek_v2_lite_16b: served whole in bf16, its float32 invariant
+    whole, trained at full width on its dense layer and 5 MoE layers."""
+    out = {"moe serve": moe_serve_path(P, dev, seed, card)}
+    out["moe invariant"] = moe_invariant_path(P, dev, seed, card)
+    out["moe train"] = train_path(P, dev, seed, card, arch=MOE_ARCH,
+                                  layers=MOE_TRAIN_LAYERS, tag="moe train",
+                                  why=MOE_TRAIN_WHY)
+    return out
+
+
 # --------------------------------------------------------------------------
 
 
@@ -1945,6 +2137,14 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
     print(f"card: {card}", flush=True)
+    start = last = time.perf_counter()
+
+    def lap(what: str) -> None:
+        nonlocal last
+        now = time.perf_counter()
+        print(f"wall: {what} {now - last:.1f} s ({now - start:.1f} s in "
+              f"all)", flush=True)
+        last = now
 
     t = time.perf_counter()
     P.build.build_all(KERNELS)
@@ -1973,6 +2173,7 @@ def main(argv=None) -> int:
           f"vs plain on card: max |err| filter_agg {fa_err!r}, block_agg "
           f"{ba_err!r} ({time.perf_counter() - t:.1f}s)", flush=True)
 
+    lap("build and kernel sweeps")
     ds_rows = 1 << args.rows_log2
     obj_rows = len(P.core.plan_partition(
         _events_ds(P.core, "events", ds_rows),
@@ -2013,6 +2214,7 @@ def main(argv=None) -> int:
           f"{split['h2d_ms']:.4f} ms, kernel {split['kernel_ms']:.4f} ms, "
           f"D2H {split['d2h_ms']:.4f} ms  [{card}]", flush=True)
 
+    lap("kernel timings")
     t = time.perf_counter()
     ev = make_events(dev, ds_rows, args.seed)
     table = {k: v.cpu().numpy() for k, v in ev.items()}
@@ -2059,19 +2261,25 @@ def main(argv=None) -> int:
         store.close()
     del store, table
     gc.collect()
+    lap("main path, pushdown, ingest, table planes")
     planes.update(fresh_planes(P, dev, args.seed, card,
                                maint_rows=ds_rows))
     gc.collect()
     torch.cuda.empty_cache()
+    lap("maintenance, checkpoint, KV pages")
     planes["serve"] = serve_path(P, dev, args.seed, card)
+    lap("serve")
     planes["train"] = train_path(P, dev, args.seed, card)
     planes["train restart"] = restart_path(P, dev, args.seed, card)
     flash_path(P, dev, args.seed, card)
+    lap("train, restart, flash backward")
+    planes.update(moe_paths(P, dev, args.seed, card))
+    lap("mixture of experts")
 
     scans = {"scan": res["launches"],
              "packed ingest": ing["launches"]["bitunpack"],
              **{name: planes[name]["launches"]["bitunpack"]
-                for name in PLANE_PATHS + TRAIN_PATHS
+                for name in PLANE_PATHS + TRAIN_PATHS + MOE_PATHS
                 if "launches" in planes[name]}}
     launches = {"bitunpack": sum(scans.values()),
                 "filter_agg": pd["launches"]["filter_agg"],
@@ -2079,7 +2287,7 @@ def main(argv=None) -> int:
     print(f"launches per path: scan bitunpack {res['launches']}; device "
           f"pushdown {pd['launches']}; packed ingest {ing['launches']}; "
           + "; ".join(f"{name} {planes[name]['launches']}"
-                      for name in PLANE_PATHS + TRAIN_PATHS
+                      for name in PLANE_PATHS + TRAIN_PATHS + MOE_PATHS
                       if "launches" in planes[name])
           + "; checkpoint and KV pages launch no kernel, nor does the flash"
           " backward")

@@ -1,8 +1,8 @@
-"""Attention: GQA/MHA/MQA flash-style blockwise attention and the decode
-paths.
+"""Attention: GQA/MHA/MQA flash-style blockwise attention, MLA, and the
+decode paths.
 
-The counterpart of ``repro.models.attention`` (MLA waits for a later
-slice).  Layouts are the reference's:
+The counterpart of ``repro.models.attention``.  Layouts are the
+reference's:
   q weights  (D, H, hd)
   kv weights (D, K, hd)
   o weights  (H, hd, D)
@@ -24,6 +24,14 @@ Decode attends one query against the cache and writes the new K and V
 into it in place at ``min(pos, S - 1)`` (the reference's
 ``dynamic_update_slice`` clamps the same way), with keys
 ``arange(S) <= pos`` valid and a plain softmax.
+
+MLA (DeepSeek-V2) prefill up-projects the latent and runs the same
+flash attention with K == H, q and k of nope + rope = 192 and v of 128
+(scale ``192 ** -0.5``).  Its decode is the absorbed form over the
+latent cache ``(B, S, r)`` + ``(B, S, rope)``, with the reference's
+dtypes: ``q_lat`` a product in the compute dtype, both score products
+in float32 (operands upcast, which is exact for bf16), the softmax
+weights cast to the cache's dtype before the value product.
 """
 
 from __future__ import annotations
@@ -51,6 +59,18 @@ def init_attention(cfg: ArchConfig, device=None) -> nn.ParameterDict:
         "wk": _param((d, K, hd), dt, device),
         "wv": _param((d, K, hd), dt, device),
         "wo": _param((H, hd, d), dt, device)})
+
+
+def init_mla(cfg: ArchConfig, device=None) -> nn.ParameterDict:
+    m, d, H = cfg.mla, cfg.d_model, cfg.n_heads
+    qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
+    dt = cfg.param_dtype
+    return nn.ParameterDict({
+        "wq": _param((d, H, qk_head), dt, device),
+        "wdkv": _param((d, m.kv_lora_rank + m.qk_rope_head_dim), dt, device),
+        "wuk": _param((m.kv_lora_rank, H, m.qk_nope_head_dim), dt, device),
+        "wuv": _param((m.kv_lora_rank, H, m.v_head_dim), dt, device),
+        "wo": _param((H, m.v_head_dim, d), dt, device)})
 
 
 # --------------------------------------------------------------------------
@@ -324,3 +344,64 @@ def gqa_decode_q8(cfg: ArchConfig, p, x: torch.Tensor, pos,
     out = torch.einsum("bhk,hkd->bd", o.reshape(B, H, hd).to(x.dtype),
                        p["wo"])[:, None, :]
     return out.to(x.dtype), k_cache, v_cache, k_scale, v_scale
+
+
+# --------------------------------------------------------------------------
+# MLA (DeepSeek-V2): compressed-latent KV cache
+# --------------------------------------------------------------------------
+
+
+def _mla_project(cfg: ArchConfig, p, x: torch.Tensor,
+                 positions: torch.Tensor):
+    m = cfg.mla
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    q_nope = q[..., :m.qk_nope_head_dim]
+    q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions,
+                        cfg.rope_theta)
+    dkv = x @ p["wdkv"]                              # (B, S, r + rope)
+    c_kv = dkv[..., :m.kv_lora_rank]
+    k_rope = apply_rope(dkv[..., None, m.kv_lora_rank:], positions,
+                        cfg.rope_theta)              # (B, S, 1, rope)
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def mla_forward(cfg: ArchConfig, p, x: torch.Tensor,
+                positions: torch.Tensor, *, kv_out: bool = False):
+    """Prefill MLA: up-project the latent and run flash with K == H.
+    Returns (out, (c_kv (B, S, r), k_rope (B, S, rope))) for the cache."""
+    q_nope, q_rope, c_kv, k_rope = _mla_project(cfg, p, x, positions)
+    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p["wuk"])
+    v = torch.einsum("bsr,rhk->bshk", c_kv, p["wuv"])
+    k_rope_rep = k_rope.expand(-1, -1, cfg.n_heads, -1)
+    q_cat = torch.cat([q_nope, q_rope], dim=-1)
+    k_cat = torch.cat([k_nope, k_rope_rep], dim=-1)
+    o = flash_attention(q_cat, k_cat, v, causal=True)
+    out = torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    return out, ((c_kv, k_rope[:, :, 0, :]) if kv_out else None)
+
+
+def mla_decode(cfg: ArchConfig, p, x: torch.Tensor, pos,
+               ckv_cache: torch.Tensor, krope_cache: torch.Tensor):
+    """Absorbed-weight MLA decode: scores and values in latent space.
+    x: (B, 1, D); pos: 0-d int32; caches (B, S, r) and (B, S, rope),
+    updated in place.  Returns (out, ckv_cache, krope_cache)."""
+    m = cfg.mla
+    B, S = x.shape[0], ckv_cache.shape[1]
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
+    q_nope, q_rope, c_kv, k_rope = _mla_project(cfg, p, x, pos.expand(B, 1))
+    _write(ckv_cache, c_kv, pos)
+    _write(krope_cache, k_rope[:, :, 0, :], pos)
+
+    # absorb W_uk into q: (B, 1, H, dn) . (r, H, dn) -> (B, H, r)
+    q_lat = torch.einsum("bshk,rhk->bhr", q_nope, p["wuk"])
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    s = (torch.einsum("bhr,bsr->bhs", q_lat.float(), ckv_cache.float())
+         + torch.einsum("bhp,bsp->bhs", q_rope[:, 0].float(),
+                        krope_cache.float())) * scale
+    valid = torch.arange(S, device=x.device) <= pos
+    s = torch.where(valid, s, _NEG)
+    w = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bhs,bsr->bhr", w.to(ckv_cache.dtype), ckv_cache)
+    o = torch.einsum("bhr,rhk->bhk", o_lat, p["wuv"])
+    out = torch.einsum("bhk,hkd->bd", o, p["wo"])[:, None, :]
+    return out.to(x.dtype), ckv_cache, krope_cache

@@ -1,35 +1,43 @@
-"""Model assembly: the decoder stack of the dense, audio and vlm families.
+"""Model assembly: the decoder stack of the dense, moe, audio and vlm
+families.
 
-The counterpart of ``repro.models.transformer.TransformerLM`` for
-``attention="gqa"`` without experts:
+The counterpart of ``repro.models.transformer.TransformerLM``:
 
   model = build_model(cfg, remat=..., device=...)  # models.archs
   model.init(generator)                      # seeded, in place
   shapes, specs = model.abstract()           # meta tensors + specs
-  loss, metrics = model.loss(batch)          # forward + chunked CE
+  loss, metrics = model.loss(batch)          # forward + chunked CE + aux
   logits, cache = model.prefill(batch)       # build the decode cache
   logits, cache = model.decode_step(tokens, cache)
   cache, cache_specs = model.abstract_cache(B, S)   # meta tensors + specs
 
 Layers are ``Block`` modules in an ``nn.ModuleList``, run one after the
-other (the reference scans one stacked block); in ``loss`` each block
-runs under the ``remat`` policy: ``"none"``, ``"full"``
+other (the reference scans one stacked block).  A block's attention is
+GQA or MLA (``cfg.attention``) and its FFN a dense MLP or, in the
+``moe`` family, a mixture of experts (``models.moe``).  The moe family's
+leading ``first_dense`` layers are dense ``pre_blocks``, run before the
+stack and first in the cache, as in the reference.  In ``loss`` each
+stacked block runs under the ``remat`` policy: ``"none"``, ``"full"``
 (``torch.utils.checkpoint``: the backward recomputes the block) or
 ``"dots"`` (selective checkpointing that saves the outputs of matrix
 products without batch dimensions, jax's
-``dots_with_no_batch_dims_saveable``).  The decode cache is the
-reference's: a dict of stacked ``(L, B, S, K, hd)`` tensors ``k`` and
-``v`` (int8 plus ``(L, B, S, K)`` float32 ``k_scale``/``v_scale`` when
-``KV_CACHE_QUANT``) and a 0-d int32 ``pos``, so its KV pages have the
-reference's keys and bytes.  ``decode_step`` writes the new token's K
-and V into the cache it is given, in place, and returns it with
-``pos + 1``.
+``dots_with_no_batch_dims_saveable``); the pre-blocks run without one,
+as the reference runs them.  Each block returns its router loss beside
+the hidden state, and ``loss`` adds their sum (``aux_loss``).
+
+The decode cache is the reference's: a dict of stacked tensors — ``k``
+and ``v`` ``(L, B, S, K, hd)`` for GQA (int8 plus ``(L, B, S, K)``
+float32 ``k_scale``/``v_scale`` when ``KV_CACHE_QUANT``), MLA's latent
+``ckv`` ``(L, B, S, r)`` and ``krope`` ``(L, B, S, rope)`` — and a 0-d
+int32 ``pos``, so its KV pages have the reference's keys and bytes.
+``decode_step`` writes the new token's entries into the cache it is
+given, in place, and returns it with ``pos + 1``.
 
 ``params_from_reference`` / ``params_to_reference`` move weights from
 and to the reference's params tree (numpy leaves, ``blocks`` stacked on
-a leading L axis); ``train_state_from_reference`` /
-``train_state_to_reference`` do the same for a whole train state
-(params, AdamW moments and step).
+a leading L axis, ``pre_blocks`` a list of per-layer trees);
+``train_state_from_reference`` / ``train_state_to_reference`` do the
+same for a whole train state (params, AdamW moments and step).
 """
 
 from __future__ import annotations
@@ -55,21 +63,33 @@ from repro_torch.models.layers import (
     init_mlp,
     init_norm,
 )
+from repro_torch.models.moe import init_moe, moe_ffn
 
 # int8 KV cache for GQA decode (per-(token, kv-head) symmetric scales)
 KV_CACHE_QUANT = False
 
 REMAT_POLICIES = ("none", "dots", "full")
 
-# logical-axis specs of each leaf, as the reference's init functions
-# give them (``blocks`` leaves get a leading None for the L axis)
+# logical-axis specs of each (part, leaf), as the reference's init
+# functions give them (``blocks`` leaves get a leading None for L)
 PARAM_SPECS = {
-    "tok": ("fsdp", None), "head": ("fsdp", "tp"),
-    "scale": (None,), "bias": (None,),
-    "wq": ("fsdp", "tp", None), "wk": ("fsdp", None, None),
-    "wv": ("fsdp", None, None), "wo": ("tp", None, "fsdp"),
-    "w1": ("fsdp", "tp"), "w3": ("fsdp", "tp"), "w2": ("tp", "fsdp"),
+    ("embed", "tok"): ("fsdp", None), ("embed", "head"): ("fsdp", "tp"),
+    **{(part, k): (None,) for part in ("ln1", "ln2", "final_norm")
+       for k in ("scale", "bias")},
+    ("attn", "wq"): ("fsdp", "tp", None), ("attn", "wk"): ("fsdp", None, None),
+    ("attn", "wv"): ("fsdp", None, None), ("attn", "wo"): ("tp", None, "fsdp"),
+    ("attn", "wdkv"): ("fsdp", None), ("attn", "wuk"): (None, "tp", None),
+    ("attn", "wuv"): (None, "tp", None),
+    ("mlp", "w1"): ("fsdp", "tp"), ("mlp", "w3"): ("fsdp", "tp"),
+    ("mlp", "w2"): ("tp", "fsdp"),
+    ("moe", "router"): (None, None),
+    ("moe", "w1"): (None, "fsdp_expert", "tp"),
+    ("moe", "w3"): (None, "fsdp_expert", "tp"),
+    ("moe", "w2"): (None, "tp", "fsdp_expert"),
+    ("moe", "sw1"): ("fsdp_expert", "tp"), ("moe", "sw3"): ("fsdp_expert", "tp"),
+    ("moe", "sw2"): ("tp", "fsdp_expert"),
 }
+BLOCK_PARTS = ("ln1", "ln2", "attn", "mlp", "moe")
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -92,20 +112,40 @@ def _remat(fn, policy: str):
     return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
 
 
-class Block(nn.Module):
-    """One decoder layer: pre-norm attention and MLP, residual adds."""
+def fan_in(part: str, leaf: str, shape) -> int:
+    """The contraction width d_in of a weight's ``normal * d_in^-0.5``
+    init, as the reference's init functions pass it: ``tok`` by d_model,
+    ``wo`` (H, hd, D) by H * hd, the experts' (E, d_in, d_out) by their
+    middle axis, every other weight by its first."""
+    if leaf == "tok":
+        return shape[1]
+    if leaf == "wo":
+        return shape[0] * shape[1]
+    if part == "moe" and len(shape) == 3:
+        return shape[1]
+    return shape[0]
 
-    def __init__(self, cfg: ArchConfig, device=None):
+
+class Block(nn.Module):
+    """One decoder layer: pre-norm attention (GQA or MLA) and an MLP or
+    mixture of experts, residual adds."""
+
+    def __init__(self, cfg: ArchConfig, moe_layer: bool, device=None):
         super().__init__()
         self.ln1 = init_norm(cfg, cfg.d_model, device)
         self.ln2 = init_norm(cfg, cfg.d_model, device)
-        self.attn = attn.init_attention(cfg, device)
-        self.mlp = init_mlp(cfg, cfg.d_model, cfg.d_ff, cfg.param_dtype,
-                            device)
+        self.attn = (attn.init_mla(cfg, device) if cfg.attention == "mla"
+                     else attn.init_attention(cfg, device))
+        if moe_layer:
+            self.moe = init_moe(cfg, device)
+        else:
+            self.mlp = init_mlp(cfg, cfg.d_model, cfg.d_ff, cfg.param_dtype,
+                                device)
 
 
 class TransformerLM(nn.Module):
-    """Families dense, audio (frame embeds in) and vlm (patch + text)."""
+    """Families dense, moe (GQA or MLA), audio (frame embeds in) and vlm
+    (patch + text)."""
 
     def __init__(self, cfg: ArchConfig, remat: str = "full",
                  device="cuda"):
@@ -113,61 +153,74 @@ class TransformerLM(nn.Module):
         if remat not in REMAT_POLICIES:
             raise ValueError(f"remat {remat!r} is not one of "
                              f"{REMAT_POLICIES}")
-        if cfg.moe is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: mixture-of-experts layers (models/moe.py) are "
-                "not ported yet (ROADMAP 'Still to port': MoE)")
-        if cfg.attention != "gqa":
-            raise NotImplementedError(
-                f"{cfg.name}: attention={cfg.attention!r} is not ported yet "
-                "(ROADMAP 'Still to port': MLA)")
-        if cfg.family not in ("dense", "audio", "vlm"):
+        if cfg.family not in ("dense", "moe", "audio", "vlm"):
             raise NotImplementedError(
                 f"{cfg.name}: family {cfg.family!r} is not a TransformerLM")
         self.cfg = cfg
         self.remat = remat
+        n_pre = cfg.moe.first_dense if cfg.moe else 0
         self.embed = init_embed(cfg, device)
-        self.blocks = nn.ModuleList(Block(cfg, device)
-                                    for _ in range(cfg.n_layers))
+        self.blocks = nn.ModuleList(
+            Block(cfg, cfg.moe is not None, device)
+            for _ in range(cfg.n_layers - n_pre))
         self.final_norm = init_norm(cfg, cfg.d_model, device)
+        self.pre_blocks = nn.ModuleList(Block(cfg, False, device)
+                                        for _ in range(n_pre))
 
     @property
     def device(self) -> torch.device:
         return self.embed["tok"].device
+
+    def layers(self) -> list[Block]:
+        """Every block in the order the model runs them and the cache
+        stacks them: the pre-blocks, then the stack."""
+        return [*self.pre_blocks, *self.blocks]
 
     # ------------------------------------------------------------ params
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "TransformerLM":
         """Norm scales 1 and biases 0; every weight normal * d_in^-0.5,
         drawn in float32 from ``generator`` (on the model's device) and
-        cast, d_in being the weight's contraction width."""
-        cfg = self.cfg
-        fan_in = {"tok": cfg.d_model, "wo": cfg.n_heads * cfg.head_dim}
+        cast, d_in being the weight's contraction width (``fan_in``)."""
         for name, p in self.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
+            part, leaf = name.split(".")[-2:]
             if leaf == "scale":
                 p.fill_(1.0)
             elif leaf == "bias":
                 p.zero_()
             else:
-                dense_init_(p, fan_in.get(leaf, p.shape[0]), generator)
+                dense_init_(p, fan_in(part, leaf, p.shape), generator)
         return self
 
     def abstract(self):
         """(params as meta tensors, logical-axis specs), both in the
-        reference's tree layout (``blocks`` stacked on L)."""
+        reference's tree layout (``blocks`` stacked on L, ``pre_blocks``
+        a list of per-layer trees)."""
         L = len(self.blocks)
+
+        def meta(shape, dtype):
+            return torch.empty(shape, dtype=dtype, device="meta")
+
         shapes: dict = {}
         specs: dict = {}
         for (top, k), p in _top_items(self):
-            shapes.setdefault(top, {})[k] = torch.empty(
-                p.shape, dtype=p.dtype, device="meta")
-            specs.setdefault(top, {})[k] = PARAM_SPECS[k]
+            shapes.setdefault(top, {})[k] = meta(p.shape, p.dtype)
+            specs.setdefault(top, {})[k] = PARAM_SPECS[top, k]
         for (part, k), p in _block_items(self.blocks[0]):
             shapes.setdefault("blocks", {}).setdefault(part, {})[k] = \
-                torch.empty((L, *p.shape), dtype=p.dtype, device="meta")
+                meta((L, *p.shape), p.dtype)
             specs.setdefault("blocks", {}).setdefault(part, {})[k] = \
-                (None, *PARAM_SPECS[k])
+                (None, *PARAM_SPECS[part, k])
+        if len(self.pre_blocks):
+            shapes["pre_blocks"], specs["pre_blocks"] = [], []
+            for blk in self.pre_blocks:
+                s: dict = {}
+                sp: dict = {}
+                for (part, k), p in _block_items(blk):
+                    s.setdefault(part, {})[k] = meta(p.shape, p.dtype)
+                    sp.setdefault(part, {})[k] = PARAM_SPECS[part, k]
+                shapes["pre_blocks"].append(s)
+                specs["pre_blocks"].append(sp)
         return shapes, specs
 
     # ------------------------------------------------------------ embed
@@ -186,13 +239,21 @@ class TransformerLM(nn.Module):
 
     # ------------------------------------------------------------ blocks
     def _block_fwd(self, blk: Block, h, positions, kv_out: bool = False):
+        """(h, aux (0-d float32), kv)."""
         cfg = self.cfg
         a_in = hint(apply_norm(cfg, blk.ln1, h), "dp", None, None)
-        a_out, kv = attn.gqa_forward(cfg, blk.attn, a_in, positions,
-                                     kv_out=kv_out)
+        forward = attn.mla_forward if cfg.attention == "mla" \
+            else attn.gqa_forward
+        a_out, kv = forward(cfg, blk.attn, a_in, positions, kv_out=kv_out)
         h = hint(h + a_out, "dp", "act_seq", None)
-        f_out = apply_mlp(cfg, blk.mlp, apply_norm(cfg, blk.ln2, h))
-        return hint(h + f_out, "dp", "act_seq", None), kv
+        f_out, aux = self._ffn(blk, apply_norm(cfg, blk.ln2, h))
+        return hint(h + f_out, "dp", "act_seq", None), aux, kv
+
+    def _ffn(self, blk: Block, x):
+        if hasattr(blk, "moe"):
+            return moe_ffn(self.cfg, blk.moe, x)
+        return apply_mlp(self.cfg, blk.mlp, x), torch.zeros(
+            (), dtype=torch.float32, device=x.device)
 
     def _positions(self, h: torch.Tensor) -> torch.Tensor:
         B, S = h.shape[0], h.shape[1]
@@ -206,48 +267,54 @@ class TransformerLM(nn.Module):
 
     # ------------------------------------------------------------ train
     def _train_block(self, blk: Block, h, positions):
-        return self._block_fwd(blk, h, positions)[0]
+        return self._block_fwd(blk, h, positions)[:2]
 
     def loss(self, batch):
         h = self._embed(batch)
         positions = self._positions(h)
+        aux0 = torch.zeros((), dtype=torch.float32, device=h.device)
+        for blk in self.pre_blocks:
+            h, a = self._train_block(blk, h, positions)
+            aux0 = aux0 + a
         block = _remat(self._train_block, self.remat)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for blk in self.blocks:
-            h = block(blk, h, positions)
+            h, a = block(blk, h, positions)
+            aux = aux + a
+        aux = aux + aux0
         h = apply_norm(self.cfg, self.final_norm, h)
         loss, metrics = chunked_softmax_xent(h, self.embed["head"],
                                              batch["labels"])
-        metrics["aux_loss"] = torch.zeros((), dtype=torch.float32,
-                                          device=h.device)
-        return loss + metrics["aux_loss"], metrics
+        metrics["aux_loss"] = aux
+        return loss + aux, metrics
 
     # ------------------------------------------------------------ serve
+    def _cache_leaves(self) -> dict[str, tuple]:
+        """Each cache leaf's shape past (L, B, S) and its dtype."""
+        cfg = self.cfg
+        if cfg.attention == "mla":
+            m = cfg.mla
+            return {"ckv": ((m.kv_lora_rank,), cfg.compute_dtype),
+                    "krope": ((m.qk_rope_head_dim,), cfg.compute_dtype)}
+        K, hd = cfg.n_kv_heads, cfg.head_dim
+        if KV_CACHE_QUANT:
+            return {"k": ((K, hd), torch.int8), "v": ((K, hd), torch.int8),
+                    "k_scale": ((K,), torch.float32),
+                    "v_scale": ((K,), torch.float32)}
+        return {"k": ((K, hd), cfg.compute_dtype),
+                "v": ((K, hd), cfg.compute_dtype)}
+
     def abstract_cache(self, batch: int, max_seq: int):
         """The cache as meta tensors, and its logical-axis specs."""
-        cfg = self.cfg
-        L, K, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+        L = self.cfg.n_layers
         bdp = None if batch == 1 else "dp"
         sp = "all" if batch == 1 else "sp"
-
-        def meta(shape, dtype):
-            return torch.empty(shape, dtype=dtype, device="meta")
-
-        if KV_CACHE_QUANT:
-            kv_dt, kv_shape = torch.int8, (L, batch, max_seq, K, hd)
-            cache = {"k": meta(kv_shape, kv_dt), "v": meta(kv_shape, kv_dt),
-                     "k_scale": meta(kv_shape[:-1], torch.float32),
-                     "v_scale": meta(kv_shape[:-1], torch.float32)}
-            specs = {"k": (None, bdp, sp, None, None),
-                     "v": (None, bdp, sp, None, None),
-                     "k_scale": (None, bdp, sp, None),
-                     "v_scale": (None, bdp, sp, None)}
-        else:
-            kv_shape = (L, batch, max_seq, K, hd)
-            cache = {"k": meta(kv_shape, cfg.compute_dtype),
-                     "v": meta(kv_shape, cfg.compute_dtype)}
-            specs = {"k": (None, bdp, sp, None, None),
-                     "v": (None, bdp, sp, None, None)}
-        cache["pos"] = meta((), torch.int32)
+        cache, specs = {}, {}
+        for k, (tail, dtype) in self._cache_leaves().items():
+            cache[k] = torch.empty((L, batch, max_seq, *tail), dtype=dtype,
+                                   device="meta")
+            specs[k] = (None, bdp, sp, *([None] * len(tail)))
+        cache["pos"] = torch.empty((), dtype=torch.int32, device="meta")
         specs["pos"] = ()
         return cache, specs
 
@@ -262,20 +329,28 @@ class TransformerLM(nn.Module):
         h = self._embed(batch)
         B, S = h.shape[0], h.shape[1]
         positions = self._positions(h)
-        shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.head_dim)
-        ks = torch.empty(shape, dtype=cfg.compute_dtype, device=h.device)
-        vs = torch.empty_like(ks)
-        for i, blk in enumerate(self.blocks):
-            h, (k, v) = self._block_fwd(blk, h, positions, kv_out=True)
-            ks[i], vs[i] = k, v
+        mla = cfg.attention == "mla"
+        if mla:
+            m = cfg.mla
+            tails = ((m.kv_lora_rank,), (m.qk_rope_head_dim,))
+        else:
+            tails = ((cfg.n_kv_heads, cfg.head_dim),) * 2
+        c1, c2 = (torch.empty((cfg.n_layers, B, S, *t),
+                              dtype=cfg.compute_dtype, device=h.device)
+                  for t in tails)
+        for i, blk in enumerate(self.layers()):
+            h, _, (a, b) = self._block_fwd(blk, h, positions, kv_out=True)
+            c1[i], c2[i] = a, b
         logits = self._logits(h)
-        if KV_CACHE_QUANT:
-            kq, k_scale = attn.quantize_kv(ks)
-            vq, v_scale = attn.quantize_kv(vs)
+        if mla:
+            cache = {"ckv": c1, "krope": c2}
+        elif KV_CACHE_QUANT:
+            kq, k_scale = attn.quantize_kv(c1)
+            vq, v_scale = attn.quantize_kv(c2)
             cache = {"k": kq, "v": vq, "k_scale": k_scale,
                      "v_scale": v_scale}
         else:
-            cache = {"k": ks, "v": vs}
+            cache = {"k": c1, "v": c2}
         cache = {k: hint(v, None, "dp" if B > 1 else None,
                          "sp" if B > 1 else "all", *([None] * (v.ndim - 3)))
                  for k, v in cache.items()}
@@ -284,13 +359,19 @@ class TransformerLM(nn.Module):
 
     def decode_step(self, tokens: torch.Tensor, cache: dict):
         """tokens: (B, 1) int32.  Returns (logits (B, V), cache), the
-        cache's K and V written in place."""
+        cache's entries written in place."""
         cfg = self.cfg
         pos = cache["pos"]
+        quant = KV_CACHE_QUANT and cfg.attention == "gqa"
+        if quant and len(self.pre_blocks):
+            raise AssertionError("q8 decode: no pre-block GQA archs")
         h = embed_tokens(self.embed, tokens, cfg.compute_dtype)
-        for i, blk in enumerate(self.blocks):
+        for i, blk in enumerate(self.layers()):
             a_in = apply_norm(cfg, blk.ln1, h)
-            if KV_CACHE_QUANT:
+            if cfg.attention == "mla":
+                a_out = attn.mla_decode(cfg, blk.attn, a_in, pos,
+                                        cache["ckv"][i], cache["krope"][i])[0]
+            elif quant:
                 a_out = attn.gqa_decode_q8(
                     cfg, blk.attn, a_in, pos, cache["k"][i], cache["v"][i],
                     cache["k_scale"][i], cache["v_scale"][i])[0]
@@ -298,7 +379,7 @@ class TransformerLM(nn.Module):
                 a_out = attn.gqa_decode(cfg, blk.attn, a_in, pos,
                                         cache["k"][i], cache["v"][i])[0]
             h = h + a_out
-            h = h + apply_mlp(cfg, blk.mlp, apply_norm(cfg, blk.ln2, h))
+            h = h + self._ffn(blk, apply_norm(cfg, blk.ln2, h))[0]
         new_cache = {k: v for k, v in cache.items() if k != "pos"}
         new_cache["pos"] = pos + 1
         return self._logits(h), new_cache
@@ -342,16 +423,18 @@ def _top_items(module: TransformerLM):
 
 def _block_items(blk: Block):
     """(path under the reference's ``blocks``, parameter) of one block."""
-    for part in ("ln1", "ln2", "attn", "mlp"):
-        for k, p in getattr(blk, part).items():
-            yield (part, k), p
+    for part in BLOCK_PARTS:
+        if hasattr(blk, part):
+            for k, p in getattr(blk, part).items():
+                yield (part, k), p
 
 
 @torch.no_grad()
 def params_from_reference(model: TransformerLM, tree) -> TransformerLM:
     """Fill ``model`` from the reference's params tree (tensors or
-    numpy-convertible leaves; ``blocks`` stacked on a leading L axis),
-    each leaf cast to its parameter's dtype on its device."""
+    numpy-convertible leaves; ``blocks`` stacked on a leading L axis,
+    ``pre_blocks`` a list), each leaf cast to its parameter's dtype on
+    its device."""
     for path, p in _top_items(model):
         p.copy_(_leaf(tree[path[0]][path[1]]))
     blocks = tree["blocks"]
@@ -362,13 +445,20 @@ def params_from_reference(model: TransformerLM, tree) -> TransformerLM:
                              f"layers, the model has {len(model.blocks)}")
         for i, blk in enumerate(model.blocks):
             getattr(blk, part)[k].copy_(stacked[i])
+    pre = tree.get("pre_blocks", [])
+    if len(pre) != len(model.pre_blocks):
+        raise ValueError(f"pre_blocks: {len(pre)} layers, the model has "
+                         f"{len(model.pre_blocks)}")
+    for sub, blk in zip(pre, model.pre_blocks):
+        for (part, k), p in _block_items(blk):
+            p.copy_(_leaf(sub[part][k]))
     return model
 
 
 def params_to_reference(model: TransformerLM) -> dict:
     """The reference's params tree of ``model``: numpy leaves, ``blocks``
-    stacked on a leading L axis (bfloat16 parameters as float32, which
-    holds them exactly)."""
+    stacked on a leading L axis, ``pre_blocks`` a list (bfloat16
+    parameters as float32, which holds them exactly)."""
     tree: dict = {}
     for (top, k), p in _top_items(model):
         tree.setdefault(top, {})[k] = _to_numpy(p)
@@ -377,6 +467,13 @@ def params_to_reference(model: TransformerLM) -> dict:
         blocks.setdefault(part, {})[k] = np.stack(
             [_to_numpy(getattr(blk, part)[k]) for blk in model.blocks])
     tree["blocks"] = blocks
+    if len(model.pre_blocks):
+        tree["pre_blocks"] = []
+        for blk in model.pre_blocks:
+            sub: dict = {}
+            for (part, k), p in _block_items(blk):
+                sub.setdefault(part, {})[k] = _to_numpy(p)
+            tree["pre_blocks"].append(sub)
     return tree
 
 
@@ -385,34 +482,46 @@ def params_to_reference(model: TransformerLM) -> dict:
 # --------------------------------------------------------------------------
 
 
-def _ref_path(name: str) -> tuple[tuple[str, ...], int | None]:
+def _ref_path(name: str) -> tuple[tuple, int | None]:
     """A parameter's name in the module (``blocks.3.attn.wq``) as its
-    path in the reference's tree and its layer (None above the stack)."""
+    path in the reference's tree and its layer in the stack (None
+    outside it): ``pre_blocks.0.attn.wq`` is ``("pre_blocks", 0,
+    "attn", "wq")``, a list entry of its own."""
     parts = name.split(".")
     if parts[0] == "blocks":
         return ("blocks", parts[2], parts[3]), int(parts[1])
+    if parts[0] == "pre_blocks":
+        return ("pre_blocks", int(parts[1]), parts[2], parts[3]), None
     return tuple(parts), None
 
 
 def _reference_tree(leaves: dict[str, torch.Tensor]) -> dict:
     """Leaves keyed by parameter name -> the reference's nested tree of
     fresh host tensors, each ``blocks`` leaf stacked on L (copied layer
-    by layer into one host tensor, so the card holds no second copy)."""
+    by layer into one host tensor, so the card holds no second copy)
+    and ``pre_blocks`` a list."""
     tree: dict = {}
     layers: dict[tuple, dict[int, torch.Tensor]] = {}
+    pre: dict[int, dict] = {}
     for name, t in leaves.items():
         path, layer = _ref_path(name)
-        if layer is None:
-            tree.setdefault(path[0], {})[path[1]] = \
-                t.detach().to("cpu", copy=True)
-        else:
+        if layer is not None:
             layers.setdefault(path, {})[layer] = t.detach()
+            continue
+        host = t.detach().to("cpu", copy=True)
+        if path[0] == "pre_blocks":
+            pre.setdefault(path[1], {}).setdefault(path[2], {})[path[3]] = \
+                host
+        else:
+            tree.setdefault(path[0], {})[path[1]] = host
     for (_, part, k), by_layer in layers.items():
         first = by_layer[0]
         out = torch.empty((len(by_layer), *first.shape), dtype=first.dtype)
         for i in range(len(by_layer)):
             out[i].copy_(by_layer[i])
         tree.setdefault("blocks", {}).setdefault(part, {})[k] = out
+    if pre:
+        tree["pre_blocks"] = [pre[i] for i in range(len(pre))]
     return tree
 
 

@@ -163,4 +163,6 @@ def _host_like(tree):
     (what ``restore`` reads shapes and the target device from)."""
     if isinstance(tree, dict):
         return {k: _host_like(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_host_like(v) for v in tree]
     return torch.empty(tree.shape, dtype=tree.dtype)

@@ -21,11 +21,11 @@ from repro_torch.models.archs import build_model
 
 TOL = {"rtol": 1e-5, "atol": 1e-5}
 MODEL_TOL = {"rtol": 1e-4, "atol": 1e-4}
-# the families the port's TransformerLM serves: dense, audio, vlm (gqa)
+# the dense-FFN GQA families (dense, audio, vlm); the moe family is held
+# in test_torch_moe.py
 GQA_ARCHS = ("yi_9b", "starcoder2_7b", "granite_20b", "deepseek_67b",
              "musicgen_large", "pixtral_12b")
-LATER_ARCHS = ("deepseek_v2_lite_16b", "grok1_314b", "rwkv6_3b",
-               "zamba2_2p7b")
+LATER_ARCHS = ("rwkv6_3b", "zamba2_2p7b")
 
 
 def _t(a) -> torch.Tensor:
