@@ -112,13 +112,33 @@
     loss and ``aux_loss`` finite, ``aux_loss`` > 0, the last loss below
     the first; model FLOPs (top-6 + 2 shared experts) beside the FLOPs
     as run (every expert's capacity slots).
+20. Recurrent serve: rwkv6_3b (32 layers, d_model 2560, 40 heads of 64,
+    d_ff 8960, vocabulary 65,536; 3,073,484,800 parameters, 6.17 GB)
+    and zamba2_2p7b (54 Mamba2 layers in 9 groups of 6, each group
+    followed by one shared attention + MLP block; 80 SSD heads of 64,
+    state 64, 32 attention heads of 80, d_ff 10240, vocabulary 32,000;
+    2,396,144,800 parameters, 4.79 GB), each whole in bf16 through the
+    yi_9b phase's requests, engine, park / resume (rwkv's 170,393,604 B
+    state whole; zamba's 3,599,400,964 B of SSD and conv state whole and
+    k / v in pages) and analytics; the decode step beside its memory
+    bound; the bf16 invariant (192 + 64 against 256) without a gate.
+21. Recurrent invariants in float32, 512 + 512 against 1024, batch 2,
+    held to rtol/atol 2e-2: rwkv6_3b whole, zamba2_2p7b at one group (6
+    Mamba2 layers and the shared block), its whole depth printed without
+    a gate at 256 + 256 against 512.
+22. Recurrent train: each at full width, packed ingest from a corpus at
+    its vocabulary (bitpack16, bitpack15), the yi_9b train phase's
+    steps, batch and lr: rwkv6_3b at 1 of its 32 layers, zamba2_2p7b at
+    18 of its 54 (3 of its 9 groups, each with the shared block); every
+    loss finite, the last below the first, ``aux_loss`` 0.
 
 Each path runs with the kernels' launch counts set to 0 just before it
 and read just after; every kernel of a path must have launched (the
 checkpoint and KV paths decode nothing and launch no kernel, nor does
 the flash backward; the serve path launches ``bitunpack`` in its
 analytics scans, the train paths once a step; so do the mixture-of-
-experts serve and train paths, and the invariants launch none).  The
+experts and recurrent serve and train paths, and the invariants launch
+none).  The
 line before the last two is the ``kernels`` JSON object; the last line
 is ``{"ok": true, "device": {...}}``; any failure raises and the exit
 code is non-zero.  Needs a CUDA device and a checkout of the
@@ -203,6 +223,34 @@ MOE_ARCH, MOE_TRAIN_LAYERS = "deepseek_v2_lite_16b", 6
 MOE_KV_BYTES = 27 * SERVE_BATCH * SERVE_MAX_SEQ * (512 + 64) * 2
 MOE_TRAIN_WHY = ("bf16 params and grads with float32 AdamW moments of all "
                  "15.7 B parameters need ~188 GB, more than one card's 80 GB")
+# the recurrent families: rwkv6_3b (src/repro/configs/rwkv6_3b.py:13-32)
+# and zamba2_2p7b (src/repro/configs/zamba2_2p7b.py:16-39), each served
+# whole in bf16 through yi_9b's requests (the longest prompt, 1024, is a
+# multiple of both chunks, 16 and 256) and trained at full width.  Their
+# bf16 invariant is 192 + 64 against 256: zamba's chunk of 256 admits no
+# 448-token prefill.  The float32 invariant is gated whole for rwkv6_3b
+# and at one group (6 Mamba2 layers and the shared block) for
+# zamba2_2p7b: at this init a relative perturbation of 1e-7 grows to
+# ~3e-3 over one group's six Mamba2 layers, so the whole model's prefill
+# and decode differ by ~0.1 in both packages (at d_model 320 in float32
+# on a CPU, 0.138 in the reference and 0.097 in the port:
+# scripts/ssm_conditioning.py); its whole-depth
+# invariant (256 + 256 against 512) is printed without a gate.  Both
+# train at cut depth, each step's chunk loops issued op by op from the
+# host: rwkv6_3b at 1 of 32 layers, zamba2_2p7b at 3 of its 9 groups.
+SSM_ARCHS = ("rwkv6_3b", "zamba2_2p7b")
+SSM_TRAIN_LAYERS = {"rwkv6_3b": 1, "zamba2_2p7b": 18}
+SSM_TRAIN_WHY = {
+    "rwkv6_3b": "each layer runs 256 chunk steps of 16 tokens a step, "
+                "issued one after the other from the host, ~2.2 s a layer "
+                "on an H100; 1 keeps the phase under a minute",
+    "zamba2_2p7b": "a step of all 54 took 10.4 s on an H100 (864 chunk "
+                   "steps and 9 flash passes issued from the host); 18, "
+                   "3 groups and their shared blocks, keep the phase near "
+                   "a minute"}
+SSM_INVARIANT_BF16 = (192, 64)
+SSM_F32_LAYERS = {"rwkv6_3b": 32, "zamba2_2p7b": 6}
+SSM_F32_WHOLE = (256, 256)
 
 
 def _load_port():
@@ -266,25 +314,32 @@ def traced(fn) -> tuple[float, float, int, list]:
     call of ``fn``: the summed durations of the kernels and copies
     ``torch.profiler`` saw on the card, the host clock around the call
     and a synchronise, how many device events the profiler kept, and
-    the six names with the most device time as (name, ms, events)."""
+    the six names with the most device time as (name, ms, events).
+    Only the card's activity is traced, and its events are read from
+    the profiler's raw results: building the host-side event tree of a
+    train step (~200,000 operations) takes minutes and adds nothing to
+    these numbers."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    dev_events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.time_range.elapsed_us() for e in dev_events)
+    cuda = torch.autograd.DeviceType.CUDA
+    busy_us, n = 0.0, 0
     by_name: dict[str, list] = collections.defaultdict(lambda: [0.0, 0])
-    for e in dev_events:
-        by_name[e.name][0] += e.time_range.elapsed_us() / 1e3
-        by_name[e.name][1] += 1
-    top = sorted(((n[:80], ms, k) for n, (ms, k) in by_name.items()),
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != cuda:
+            continue
+        us = e.duration_ns() / 1e3
+        busy_us += us
+        n += 1
+        by_name[e.name()][0] += us / 1e3
+        by_name[e.name()][1] += 1
+    top = sorted(((k[:80], ms, c) for k, (ms, c) in by_name.items()),
                  key=lambda x: -x[1])[:6]
-    return busy_us / 1e3, wall, len(dev_events), top
+    return busy_us / 1e3, wall, n, top
 
 
 def device_ms(fn, iters: int) -> tuple[float, float]:
@@ -1382,6 +1437,9 @@ def kv_path(P, dev, seed: int) -> dict:
 PLANE_PATHS = ("skyhook", "session", "faults", "maintenance", "serve")
 TRAIN_PATHS = ("train", "train restart")
 MOE_PATHS = ("moe serve", "moe train")
+SSM_PATHS = tuple(f"{a} {p}" for a in SSM_ARCHS
+                  for p in ("serve", "train"))
+PATHS = PLANE_PATHS + TRAIN_PATHS + MOE_PATHS + SSM_PATHS
 
 
 def table_planes(P, store, table: dict, seed: int, card: str) -> dict:
@@ -1592,9 +1650,12 @@ def _serve_run(P, cfg, model, dev, seed: int, card: str) -> dict:
         resume_s = time.perf_counter() - t
         manifest = json.loads(store.get("kv/serve-0/.manifest").decode())
         pages = {k: len(m["pages"]) for k, m in manifest["leaves"].items()}
-        want = {f"['{k}']": SERVE_MAX_SEQ // P.kvcache.PAGE_TOKENS
-                for k in cache if k != "pos"}
-        if pages != dict(want, **{"['pos']": 1}):
+        # leaves with a sequence axis in pages, the others (``pos``,
+        # the recurrent states) whole
+        want = {f"['{k}']": (SERVE_MAX_SEQ // P.kvcache.PAGE_TOKENS
+                             if f"'{k}'" in P.engine._SEQ_LEAVES else 1)
+                for k in cache}
+        if pages != want:
             raise AssertionError(f"serve KV pages per leaf {pages}")
         for key in cache:
             if not _bits_equal(back[key], cache[key]):
@@ -1703,11 +1764,12 @@ def serve_path(P, dev, seed: int, card: str) -> dict:
     return res
 
 
-def moe_decode_bound_ms(model, cache_bytes: int) -> float:
+def decode_bound_ms(model, cache_bytes: int) -> float:
     """Least time of one decode step at the card's memory rate: every
     weight read once (each routed expert's too: the experts compute all
-    their C = 8 slots), the token embedding's B rows, the whole latent
-    cache."""
+    their C = 8 slots; zamba's shared block once, though it runs G
+    times), the token embedding's B rows, the whole cache (the latent
+    cache, the recurrent states, zamba's k / v)."""
     cfg = model.cfg
     tok = model.embed["tok"]
     nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
@@ -1729,7 +1791,7 @@ def moe_serve_path(P, dev, seed: int, card: str) -> dict:
     if kv != MOE_KV_BYTES:
         raise AssertionError(f"moe serve: latent cache {kv} B, want "
                              f"{MOE_KV_BYTES}")
-    res["decode_bound_ms"] = moe_decode_bound_ms(model, kv)
+    res["decode_bound_ms"] = decode_bound_ms(model, kv)
     experts = sum(p.numel() * p.element_size()
                   for n, p in model.named_parameters() if ".moe.w" in n)
     print(f"moe serve: decode {res['decode_ms_per_step']:.3f} ms per step "
@@ -1838,10 +1900,14 @@ def train_flops(P, cfg, model, batch: int, seq: int) -> tuple[float, float]:
     """(model FLOPs, FLOPs as run) of one train step.  Model FLOPs: 6 per
     matrix-multiplied parameter a token touches (all but the token
     embedding, a gather; of the routed experts the top_k a token is sent
-    to) per token, plus causal attention's two S x S products per layer
-    (q.k over the q/k head width, p.v over the v head width), half of
-    them masked, three times over (forward and backward).  As run, each
-    routed expert computes all its C capacity slots instead."""
+    to; zamba's shared block once for each of its G uses) per token,
+    plus causal attention's two S x S products per attention layer (q.k
+    over the q/k head width, p.v over the v head width), half of them
+    masked, three times over (forward and backward).  The SSM layers'
+    chunked scans (masked einsums within a chunk, the carried state) are
+    left out: at these widths they are under 5% of the products.  As
+    run, each routed expert computes all its C capacity slots
+    instead."""
     tokens = batch * seq
     routed = sum(p.numel() for n, p in model.named_parameters()
                  if ".moe.w" in n)
@@ -1852,7 +1918,14 @@ def train_flops(P, cfg, model, batch: int, seq: int) -> tuple[float, float]:
         vd = cfg.mla.v_head_dim
     else:
         qk = vd = cfg.head_dim
-    attn = 3 * cfg.n_layers * batch * seq * seq * cfg.n_heads * (qk + vd)
+    attn_layers = cfg.n_layers
+    if cfg.family == "hybrid":
+        attn_layers = model.n_groups
+        dense += (model.n_groups - 1) * sum(
+            p.numel() for p in model.shared.parameters())
+    elif cfg.family == "ssm":
+        attn_layers = 0
+    attn = 3 * attn_layers * batch * seq * seq * cfg.n_heads * (qk + vd)
     flops = padded = 6 * dense * tokens + attn
     if cfg.moe is not None:
         m = cfg.moe
@@ -1874,7 +1947,9 @@ def train_path(P, dev, seed: int, card: str, arch: str = TRAIN_ARCH,
     cfg = dataclasses.replace(P.configs.get_config(arch), n_layers=layers)
     model = P.archs.build_model(cfg, remat="full", device=dev)
     n_params = sum(p.numel() for p in model.parameters())
+    t = time.perf_counter()
     store, vol, omap = _train_world(P, cfg, seed)
+    world_s = time.perf_counter() - t
     try:
         # no checkpoint at this depth: one save is tens of GB of host copies
         tr = _trainer(P, model, store, vol, seed, TRAIN_STEPS,
@@ -1899,8 +1974,10 @@ def train_path(P, dev, seed: int, card: str, arch: str = TRAIN_ARCH,
     aux = [r["aux_loss"] for r in tr.history]
     batch = {"tokens_packed": torch.from_numpy(
         np.ascontiguousarray(words).view(np.int32)).to(dev)}
+    t = time.perf_counter()
     busy_ms, step_s, events, top = traced(lambda: tr.train_step(state,
                                                                  batch))
+    trace_s = time.perf_counter() - t
     walls = [r["wall_s"] for r in tr.history]
     later = walls[1:]
     tokens = TRAIN_BATCH * TRAIN_SEQ
@@ -1910,7 +1987,7 @@ def train_path(P, dev, seed: int, card: str, arch: str = TRAIN_ARCH,
            "remat": "full", "microbatches": 1, "batch": TRAIN_BATCH,
            "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "lr": TRAIN_LR,
            "corpus_sequences": TRAIN_SEQS, "corpus_objects": omap.n_objects,
-           "init_s": init_s, "run_s": run_s, "losses": losses,
+           "corpus_write_s": world_s, "trace_s": trace_s, "init_s": init_s, "run_s": run_s, "losses": losses,
            "aux_losses": aux,
            "grad_norms": [r["grad_norm"] for r in tr.history],
            "step_s": walls, "first_step_s": walls[0],
@@ -1939,10 +2016,11 @@ def train_path(P, dev, seed: int, card: str, arch: str = TRAIN_ARCH,
           f"{res['peak_mem_GB']:.3f} GB; bitunpack launches "
           f"{launches['bitunpack']}  [{card}]", flush=True)
     full = P.configs.get_config(arch)
-    print(f"reduced: {tag} at {layers} of {arch}'s {full.n_layers} layers "
-          f"({why}) and a global batch of {TRAIN_BATCH} x {TRAIN_SEQ} tokens "
-          f"(train_4k is 256 x 4096 on a pod); a {TRAIN_SEQS}-sequence "
-          f"corpus")
+    depth = (f"{layers} of {arch}'s {full.n_layers} layers ({why}) and "
+             if layers < full.n_layers else f"all {layers} layers and ")
+    print(f"reduced: {tag} at {depth}a global batch of {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens (train_4k is 256 x 4096 on a pod); a "
+          f"{TRAIN_SEQS}-sequence corpus")
     del tr, state, model, batch
     if launches != {"bitunpack": TRAIN_STEPS, "filter_agg": 0,
                     "block_agg": 0}:
@@ -1952,6 +2030,8 @@ def train_path(P, dev, seed: int, card: str, arch: str = TRAIN_ARCH,
     if cfg.moe is not None and not all(np.isfinite(a) and a > 0
                                        for a in aux):
         raise AssertionError(f"{tag}: aux losses {aux}")
+    if cfg.moe is None and any(a != 0 for a in aux):
+        raise AssertionError(f"{tag}: aux losses {aux}, want 0")
     return res
 
 
@@ -2110,6 +2190,118 @@ def moe_paths(P, dev, seed: int, card: str) -> dict:
     out["moe train"] = train_path(P, dev, seed, card, arch=MOE_ARCH,
                                   layers=MOE_TRAIN_LAYERS, tag="moe train",
                                   why=MOE_TRAIN_WHY)
+    return out
+
+
+# --------------------------------------------------------------------------
+# the recurrent families: rwkv6_3b and zamba2_2p7b
+# --------------------------------------------------------------------------
+
+
+def _cache_bytes(shapes: dict) -> int:
+    return sum(v.numel() * v.element_size() for k, v in shapes.items()
+               if k != "pos")
+
+
+def _f32_invariant(P, cfg, dev, seed: int, card: str, layers: int,
+                   split: tuple[int, int], gated: bool = True) -> dict:
+    """The prefill/decode invariant of ``cfg`` at ``layers`` layers in
+    float32, printed; the bf16 model must be freed first."""
+    model, init_s = _seeded(P, dataclasses.replace(_f32(cfg),
+                                                   n_layers=layers),
+                            dev, seed)
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    inv = _invariant(P, model, dev, *split, seed)
+    inv.update(layers=layers, init_s=init_s, weight_bytes=nbytes,
+               peak_mem_GB=torch.cuda.max_memory_allocated(dev) / 1e9)
+    del model
+    _free_card()
+    gate = f"within {INVARIANT_TOL}: {inv['within_2e-2']}" if gated \
+        else "no gate"
+    print(f"{cfg.name} serve invariant (float32, {layers} layers"
+          + ("" if gated else ", no gate") + "): " + json.dumps(inv),
+          flush=True)
+    print(f"{cfg.name} invariant: float32 at {layers} of {cfg.n_layers} "
+          f"layers ({nbytes} B of weights), prefill {split[0]} + "
+          f"{split[1]} decode steps against prefill of {sum(split)}, batch "
+          f"2: max |err| {inv['max_abs_err']!r} of logits up to "
+          f"{inv['max_abs_logit']:.4f}, {gate}; {inv['wall_s']:.3f} s, "
+          f"peak {inv['peak_mem_GB']:.3f} GB  [{card}]", flush=True)
+    return inv
+
+
+def recurrent_serve_path(P, dev, seed: int, card: str, arch: str) -> dict:
+    """``arch`` at full width and depth in bf16 through ``ServeEngine``,
+    as the yi_9b phase runs it (the recurrent states parked whole,
+    zamba's k / v in pages); the decode step beside its memory bound;
+    the bf16 invariant printed; then the float32 invariant at
+    ``SSM_F32_LAYERS`` gated at ``INVARIANT_TOL`` (the bf16 model freed
+    first), and below full depth the whole model's printed."""
+    _free_card()
+    cfg = P.configs.get_config(arch)
+    model, init_s = _seeded(P, cfg, dev, seed)
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    res = _serve_run(P, cfg, model, dev, seed, card)
+    res["init_s"] = init_s
+    cache = res["kv_bytes"] - 4
+    want = _cache_bytes(model.abstract_cache(SERVE_BATCH, SERVE_MAX_SEQ)[0])
+    if cache != want:
+        raise AssertionError(f"{arch} serve: cache {cache} B, want {want}")
+    res["decode_bound_ms"] = decode_bound_ms(model, cache)
+    print(f"{arch} serve: decode {res['decode_ms_per_step']:.3f} ms per "
+          f"step against a {res['decode_bound_ms']:.3f} ms bound at 3.35 "
+          f"TB/s ({weights} B of weights and the {cache} B cache read "
+          f"once)  [{card}]", flush=True)
+    res["invariant_bf16"] = _invariant(P, model, dev, *SSM_INVARIANT_BF16,
+                                       seed)
+    print(f"{arch} serve invariant (bf16, no gate): "
+          + json.dumps(res["invariant_bf16"]), flush=True)
+    del model
+    _free_card()
+    layers = SSM_F32_LAYERS[arch]
+    inv = _f32_invariant(P, cfg, dev, seed, card, layers, INVARIANT_F32)
+    res["invariant_f32"] = inv
+    if layers < cfg.n_layers:
+        res["invariant_f32_whole"] = _f32_invariant(
+            P, cfg, dev, seed, card, cfg.n_layers, SSM_F32_WHOLE,
+            gated=False)
+        print(f"reduced: {arch} float32 invariant gated at {layers} of "
+              f"{cfg.n_layers} layers (one group and the shared block): "
+              f"at this init a relative perturbation of 1e-7 grows to "
+              f"~3e-3 over one group's six Mamba2 layers, so the whole "
+              f"model's prefill and decode differ by ~0.1 in the reference"
+              f" and the port alike (scripts/ssm_conditioning.py); the "
+              f"whole model's is printed "
+              f"without a gate at {SSM_F32_WHOLE[0]} + {SSM_F32_WHOLE[1]}"
+              f" against {sum(SSM_F32_WHOLE)}")
+    shape = P.configs.SHAPES["decode_32k"]
+    B, S = shape.global_batch, shape.seq_len
+    need = _cache_bytes(P.archs.build_model(cfg, device="meta")
+                        .abstract_cache(B, S)[0])
+    print(f"reduced: {arch} serve at batch {SERVE_BATCH}, prompts of "
+          f"{SERVE_PROMPT[0]}-{SERVE_PROMPT[1]} tokens, {SERVE_MAX_SEQ} "
+          f"cache slots; decode_32k is a batch of {B} x {S} tokens, whose "
+          f"cache is {need / 1e9:.2f} GB beside {weights / 1e9:.2f} GB of "
+          + ("weights: it would fit, but its prefill of "
+             f"{B * S} tokens does not fit the script's time"
+             if need + weights < 70e9 else
+             "weights, more than one card's 80 GB"))
+    if not (inv["finite"] and inv["within_2e-2"]):
+        raise AssertionError(f"{arch}: float32 prefill/decode invariant "
+                             f"fails rtol/atol {INVARIANT_TOL}: {inv}")
+    return res
+
+
+def ssm_paths(P, dev, seed: int, card: str) -> dict:
+    """rwkv6_3b and zamba2_2p7b: each served whole in bf16, its float32
+    invariant gated, and trained at full width."""
+    out = {}
+    for arch in SSM_ARCHS:
+        out[f"{arch} serve"] = recurrent_serve_path(P, dev, seed, card,
+                                                    arch)
+        out[f"{arch} train"] = train_path(
+            P, dev, seed, card, arch=arch, layers=SSM_TRAIN_LAYERS[arch],
+            tag=f"{arch} train", why=SSM_TRAIN_WHY[arch])
     return out
 
 
@@ -2275,11 +2467,13 @@ def main(argv=None) -> int:
     lap("train, restart, flash backward")
     planes.update(moe_paths(P, dev, args.seed, card))
     lap("mixture of experts")
+    planes.update(ssm_paths(P, dev, args.seed, card))
+    lap("recurrent families")
 
     scans = {"scan": res["launches"],
              "packed ingest": ing["launches"]["bitunpack"],
              **{name: planes[name]["launches"]["bitunpack"]
-                for name in PLANE_PATHS + TRAIN_PATHS + MOE_PATHS
+                for name in PATHS
                 if "launches" in planes[name]}}
     launches = {"bitunpack": sum(scans.values()),
                 "filter_agg": pd["launches"]["filter_agg"],
@@ -2287,7 +2481,7 @@ def main(argv=None) -> int:
     print(f"launches per path: scan bitunpack {res['launches']}; device "
           f"pushdown {pd['launches']}; packed ingest {ing['launches']}; "
           + "; ".join(f"{name} {planes[name]['launches']}"
-                      for name in PLANE_PATHS + TRAIN_PATHS + MOE_PATHS
+                      for name in PATHS
                       if "launches" in planes[name])
           + "; checkpoint and KV pages launch no kernel, nor does the flash"
           " backward")

@@ -1,0 +1,315 @@
+"""Recurrent-family models: RWKV6 (attention-free) and Zamba2 (hybrid).
+
+The counterpart of ``repro.models.recurrent``, with the interface of
+``models.transformer.TransformerLM`` (``init``, ``abstract``, ``loss``,
+``abstract_cache``, ``init_cache``, ``prefill``, ``decode_step``), so
+the serve engine and the trainer take either unchanged.
+
+RWKV6: ``blocks`` is a ``ModuleList`` of time-mix / channel-mix blocks
+behind the embedding and an input layernorm ``ln_in``; its decode cache
+is the per-layer WKV state ``wkv`` (L, B, H, P, P) float32 and the
+normed inputs of the last token to each mix, ``tprev`` and ``cprev``
+(L, B, D), which the token shift reads.
+
+Zamba2: ``mamba`` holds G groups of K Mamba2 layers (``mamba.g.k``,
+stacked on (G, K) in the reference's tree), and one ``shared``
+attention + MLP block runs after every group: one set of weights used G
+times, each use with its own slice of the KV cache (``k``/``v``
+(G, B, S, K, hd)), whose gradients add into the one parameter.  Its
+cache also holds each layer's SSD state ``ssd`` (G, K, B, H, P, N)
+float32 and conv tail ``conv`` (G, K, B, d_conv - 1, H, P).
+
+In ``loss`` the ``remat`` policy wraps each RWKV block and each Zamba
+group (K Mamba2 layers and the shared block), as the reference's
+``_remat`` wraps its scan bodies; inside, every chunk step is
+checkpointed on its own (``models.ssm``).  ``decode_step`` writes the
+new state into the cache it is given, in place, and returns it with
+``pos + 1``.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import hint
+from repro_torch.models import attention as attn
+from repro_torch.models import ssm
+from repro_torch.models.layers import (
+    apply_mlp,
+    apply_norm,
+    chunked_softmax_xent,
+    embed_tokens,
+    init_mlp,
+    init_norm,
+)
+from repro_torch.models.transformer import (PARAM_SPECS, LanguageModel,
+                                            _remat)
+
+SPECS = {**PARAM_SPECS, **ssm.SSM_SPECS,
+         **{(part, k): (None,) for part in ("ln_in", "ln")
+            for k in ("scale", "bias")}}
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+class _Recurrent(LanguageModel):
+    """What both models add: the SSM leaves' specs and constants, the
+    loss head and the cache's allocation."""
+
+    SPECS = SPECS
+    CONSTANTS = ssm.CONSTANT_INIT
+
+    def _loss_head(self, h: torch.Tensor, labels: torch.Tensor):
+        h = apply_norm(self.cfg, self.final_norm, h)
+        loss, metrics = chunked_softmax_xent(h, self.embed["head"], labels)
+        metrics["aux_loss"] = torch.zeros((), dtype=torch.float32,
+                                          device=h.device)
+        return loss, metrics
+
+    def _empty_cache(self, batch: int, seq: int) -> dict:
+        shapes, _ = self.abstract_cache(batch, seq)
+        return {k: torch.empty(s.shape, dtype=s.dtype, device=self.device)
+                for k, s in shapes.items() if k != "pos"}
+
+
+# ==========================================================================
+# RWKV6
+# ==========================================================================
+
+
+class RWKVBlock(nn.Module):
+    def __init__(self, cfg: ArchConfig, device=None):
+        super().__init__()
+        self.ln1 = init_norm(cfg, cfg.d_model, device)
+        self.ln2 = init_norm(cfg, cfg.d_model, device)
+        self.tmix, self.cmix = ssm.init_rwkv6(cfg, device)
+
+
+class RWKVModel(_Recurrent):
+    def __init__(self, cfg: ArchConfig, remat: str = "full",
+                 device="cuda"):
+        super().__init__(cfg, remat, device)
+        self.ln_in = init_norm(cfg, cfg.d_model, device)
+        self.blocks = nn.ModuleList(RWKVBlock(cfg, device)
+                                    for _ in range(cfg.n_layers))
+        self.final_norm = init_norm(cfg, cfg.d_model, device)
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        h = embed_tokens(self.embed, tokens, cfg.compute_dtype)
+        return apply_norm(cfg, self.ln_in, h)
+
+    def _block(self, blk: RWKVBlock, h, collect: bool = False):
+        """(h, (wkv state, last normed tmix input, last normed cmix
+        input) or None)."""
+        cfg = self.cfg
+        a_in = apply_norm(cfg, blk.ln1, h)
+        t_out, wkv = ssm.rwkv6_tmix(cfg, blk.tmix, a_in, state_out=collect)
+        h = hint(h + t_out, "dp", "act_seq", None)
+        m_in = apply_norm(cfg, blk.ln2, h)
+        h = hint(h + ssm.rwkv6_cmix(cfg, blk.cmix, m_in), "dp", "act_seq",
+                 None)
+        return h, ((wkv, a_in[:, -1], m_in[:, -1]) if collect else None)
+
+    def _train_block(self, blk: RWKVBlock, h):
+        return self._block(blk, h)[0]
+
+    def loss(self, batch):
+        h = self._embed(batch["tokens"])
+        block = _remat(self._train_block, self.remat)
+        for blk in self.blocks:
+            h = block(blk, h)
+        return self._loss_head(h, batch["labels"])
+
+    # ------------------------------------------------------------ serve
+    def abstract_cache(self, batch: int, max_seq: int):
+        """The cache as meta tensors, and its logical-axis specs (no
+        leaf has a sequence axis: ``max_seq`` is unused)."""
+        cfg = self.cfg
+        L, H, Pd, D = cfg.n_layers, cfg.n_heads, cfg.head_dim, cfg.d_model
+        bdp = None if batch == 1 else "dp"
+        cache = {"wkv": _meta((L, batch, H, Pd, Pd), torch.float32),
+                 "tprev": _meta((L, batch, D), cfg.compute_dtype),
+                 "cprev": _meta((L, batch, D), cfg.compute_dtype),
+                 "pos": _meta((), torch.int32)}
+        specs = {"wkv": (None, bdp, None, None, "tp"),
+                 "tprev": (None, bdp, None), "cprev": (None, bdp, None),
+                 "pos": ()}
+        return cache, specs
+
+    def prefill(self, batch):
+        """Process a full prompt; returns (last-token logits, cache)."""
+        tokens = batch["tokens"]
+        h = self._embed(tokens)
+        cache = self._empty_cache(h.shape[0], h.shape[1])
+        for i, blk in enumerate(self.blocks):
+            h, (wkv, tprev, cprev) = self._block(blk, h, collect=True)
+            cache["wkv"][i], cache["tprev"][i], cache["cprev"][i] = \
+                wkv, tprev, cprev
+        cache["pos"] = torch.tensor(tokens.shape[1], dtype=torch.int32,
+                                    device=h.device)
+        return self._logits(h), cache
+
+    def decode_step(self, tokens: torch.Tensor, cache: dict):
+        """tokens: (B, 1) int32.  Returns (logits (B, V), cache), the
+        cache's entries written in place."""
+        cfg = self.cfg
+        h = self._embed(tokens)
+        wkv, tprev, cprev = cache["wkv"], cache["tprev"], cache["cprev"]
+        for i, blk in enumerate(self.blocks):
+            a_in = apply_norm(cfg, blk.ln1, h)
+            t_out, state = ssm.rwkv6_tmix_decode(
+                cfg, blk.tmix, a_in, tprev[i][:, None].to(a_in.dtype),
+                wkv[i])
+            h = h + t_out
+            m_in = apply_norm(cfg, blk.ln2, h)
+            h = h + ssm.rwkv6_cmix(cfg, blk.cmix, m_in,
+                                   cprev[i][:, None].to(m_in.dtype))
+            wkv[i].copy_(state)
+            tprev[i].copy_(a_in[:, 0])
+            cprev[i].copy_(m_in[:, 0])
+        new_cache = {k: v for k, v in cache.items() if k != "pos"}
+        new_cache["pos"] = cache["pos"] + 1
+        return self._logits(h), new_cache
+
+
+# ==========================================================================
+# Zamba2 hybrid
+# ==========================================================================
+
+
+class MambaLayer(nn.Module):
+    def __init__(self, cfg: ArchConfig, device=None):
+        super().__init__()
+        self.ln = init_norm(cfg, cfg.d_model, device)
+        self.mamba = ssm.init_mamba2(cfg, device)
+
+
+class SharedBlock(nn.Module):
+    def __init__(self, cfg: ArchConfig, device=None):
+        super().__init__()
+        self.ln1 = init_norm(cfg, cfg.d_model, device)
+        self.attn = attn.init_attention(cfg, device)
+        self.ln2 = init_norm(cfg, cfg.d_model, device)
+        self.mlp = init_mlp(cfg, cfg.d_model, cfg.d_ff, cfg.param_dtype,
+                            device)
+
+
+class ZambaModel(_Recurrent):
+    def __init__(self, cfg: ArchConfig, remat: str = "full",
+                 device="cuda"):
+        if cfg.ssm is None or not cfg.ssm.attn_every:
+            raise ValueError(f"{cfg.name}: a hybrid needs ssm.attn_every")
+        super().__init__(cfg, remat, device)
+        self.n_inner = cfg.ssm.attn_every                     # K = 6
+        self.n_groups = cfg.n_layers // self.n_inner          # G = 9
+        self.mamba = nn.ModuleList(
+            nn.ModuleList(MambaLayer(cfg, device)
+                          for _ in range(self.n_inner))
+            for _ in range(self.n_groups))
+        self.shared = SharedBlock(cfg, device)
+        self.final_norm = init_norm(cfg, cfg.d_model, device)
+
+    def _shared_fwd(self, h, positions, kv_out: bool = False):
+        cfg, sh = self.cfg, self.shared
+        a_in = hint(apply_norm(cfg, sh.ln1, h), "dp", None, None)
+        a_out, kv = attn.gqa_forward(cfg, sh.attn, a_in, positions,
+                                     kv_out=kv_out)
+        h = hint(h + a_out, "dp", "act_seq", None)
+        m_in = apply_norm(cfg, sh.ln2, h)
+        h = hint(h + apply_mlp(cfg, sh.mlp, m_in), "dp", "act_seq", None)
+        return h, kv
+
+    def _group(self, layers: nn.ModuleList, h, positions,
+               collect: bool = False):
+        """K Mamba2 layers, then the shared block: (h, each layer's
+        state or None, the shared block's (k, v) or None)."""
+        cfg = self.cfg
+        states = []
+        for lyr in layers:
+            out, state = ssm.mamba2_forward(
+                cfg, lyr.mamba, apply_norm(cfg, lyr.ln, h),
+                state_out=collect)
+            h = hint(h + out, "dp", "act_seq", None)
+            states.append(state)
+        h, kv = self._shared_fwd(h, positions, kv_out=collect)
+        return h, states, kv
+
+    def _train_group(self, layers: nn.ModuleList, h, positions):
+        return self._group(layers, h, positions)[0]
+
+    def loss(self, batch):
+        cfg = self.cfg
+        h = hint(embed_tokens(self.embed, batch["tokens"],
+                              cfg.compute_dtype), "dp", "act_seq", None)
+        positions = self._positions(h)
+        group = _remat(self._train_group, self.remat)
+        for layers in self.mamba:
+            h = group(layers, h, positions)
+        return self._loss_head(h, batch["labels"])
+
+    # ------------------------------------------------------------ serve
+    def abstract_cache(self, batch: int, max_seq: int):
+        """The cache as meta tensors, and its logical-axis specs."""
+        cfg = self.cfg
+        G, Kn = self.n_groups, self.n_inner
+        _, H, Pd, N = ssm.mamba_dims(cfg)
+        K, hd, dt = cfg.n_kv_heads, cfg.head_dim, cfg.compute_dtype
+        bdp = None if batch == 1 else "dp"
+        sp = "all" if batch == 1 else "sp"
+        cache = {
+            "ssd": _meta((G, Kn, batch, H, Pd, N), torch.float32),
+            "conv": _meta((G, Kn, batch, cfg.ssm.d_conv - 1, H, Pd), dt),
+            "k": _meta((G, batch, max_seq, K, hd), dt),
+            "v": _meta((G, batch, max_seq, K, hd), dt),
+            "pos": _meta((), torch.int32)}
+        specs = {"ssd": (None, None, bdp, "tp", None, None),
+                 "conv": (None, None, bdp, None, "tp", None),
+                 "k": (None, bdp, sp, None, None),
+                 "v": (None, bdp, sp, None, None),
+                 "pos": ()}
+        return cache, specs
+
+    def prefill(self, batch):
+        """Process a full prompt; returns (last-token logits, cache)."""
+        cfg = self.cfg
+        h = embed_tokens(self.embed, batch["tokens"], cfg.compute_dtype)
+        S = h.shape[1]
+        positions = self._positions(h)
+        cache = self._empty_cache(h.shape[0], S)
+        for g, layers in enumerate(self.mamba):
+            h, states, (k, v) = self._group(layers, h, positions,
+                                            collect=True)
+            for j, state in enumerate(states):
+                cache["ssd"][g, j], cache["conv"][g, j] = \
+                    state["ssd"], state["conv"]
+            cache["k"][g], cache["v"][g] = k, v
+        cache["pos"] = torch.tensor(S, dtype=torch.int32, device=h.device)
+        return self._logits(h), cache
+
+    def decode_step(self, tokens: torch.Tensor, cache: dict):
+        """tokens: (B, 1) int32.  Returns (logits (B, V), cache), the
+        cache's entries written in place."""
+        cfg, sh = self.cfg, self.shared
+        pos = cache["pos"]
+        h = embed_tokens(self.embed, tokens, cfg.compute_dtype)
+        ssd, conv = cache["ssd"], cache["conv"]
+        for g, layers in enumerate(self.mamba):
+            for j, lyr in enumerate(layers):
+                out, state = ssm.mamba2_decode(
+                    cfg, lyr.mamba, apply_norm(cfg, lyr.ln, h),
+                    {"ssd": ssd[g, j], "conv": conv[g, j]})
+                h = h + out
+                ssd[g, j].copy_(state["ssd"])
+                conv[g, j].copy_(state["conv"])
+            a_in = apply_norm(cfg, sh.ln1, h)
+            h = h + attn.gqa_decode(cfg, sh.attn, a_in, pos, cache["k"][g],
+                                    cache["v"][g])[0]
+            h = h + apply_mlp(cfg, sh.mlp, apply_norm(cfg, sh.ln2, h))
+        new_cache = {k: v for k, v in cache.items() if k != "pos"}
+        new_cache["pos"] = pos + 1
+        return self._logits(h), new_cache

@@ -37,7 +37,11 @@ given, in place, and returns it with ``pos + 1``.
 and to the reference's params tree (numpy leaves, ``blocks`` stacked on
 a leading L axis, ``pre_blocks`` a list of per-layer trees);
 ``train_state_from_reference`` / ``train_state_to_reference`` do the
-same for a whole train state (params, AdamW moments and step).
+same for a whole train state (params, AdamW moments and step).  They,
+``init_params_`` and ``reference_abstract`` serve every model class:
+a parameter's name gives its place in the reference's tree
+(``reference_path``), so the recurrent models' trees (zamba's ``mamba``
+stacked on (G, K)) need nothing of their own.
 """
 
 from __future__ import annotations
@@ -143,23 +147,70 @@ class Block(nn.Module):
                                 device)
 
 
-class TransformerLM(nn.Module):
-    """Families dense, moe (GQA or MLA), audio (frame embeds in) and vlm
-    (patch + text)."""
+class LanguageModel(nn.Module):
+    """What every model class shares: the config, the ``remat`` policy
+    and the embedding; the seeded init of ``CONSTANTS`` and weights;
+    ``abstract()`` by ``SPECS``; positions, last-token logits and a zero
+    cache.  Subclasses add ``final_norm`` and the rest."""
 
-    def __init__(self, cfg: ArchConfig, remat: str = "full",
-                 device="cuda"):
+    SPECS: dict = {}                 # (part, leaf) -> logical-axis spec
+    CONSTANTS: dict[str, float] = {}  # leaves initialised to a constant
+
+    def __init__(self, cfg: ArchConfig, remat: str, device):
         super().__init__()
         if remat not in REMAT_POLICIES:
             raise ValueError(f"remat {remat!r} is not one of "
                              f"{REMAT_POLICIES}")
+        self.cfg = cfg
+        self.remat = remat
+        self.embed = init_embed(cfg, device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed["tok"].device
+
+    def init(self, generator: torch.Generator):
+        """Norm scales 1, biases 0 and ``CONSTANTS`` their value; every
+        other weight normal * d_in^-0.5, drawn in float32 from
+        ``generator`` (on the model's device) and cast, d_in being the
+        weight's contraction width (``fan_in``)."""
+        init_params_(self, generator, self.CONSTANTS)
+        return self
+
+    def abstract(self):
+        """(params as meta tensors, logical-axis specs), both in the
+        reference's tree layout (``reference_path``)."""
+        return reference_abstract(self, self.SPECS)
+
+    def _positions(self, h: torch.Tensor) -> torch.Tensor:
+        B, S = h.shape[0], h.shape[1]
+        return torch.arange(S, dtype=torch.int32,
+                            device=h.device).expand(B, S)
+
+    def _logits(self, h: torch.Tensor) -> torch.Tensor:
+        """Last-position logits in float32 against a float32 head."""
+        h = apply_norm(self.cfg, self.final_norm, h)
+        return h[:, -1].float() @ self.embed["head"].float()
+
+    def init_cache(self, batch: int, max_seq: int) -> dict:
+        shapes, _ = self.abstract_cache(batch, max_seq)
+        return {k: torch.zeros(s.shape, dtype=s.dtype, device=self.device)
+                for k, s in shapes.items()}
+
+
+class TransformerLM(LanguageModel):
+    """Families dense, moe (GQA or MLA), audio (frame embeds in) and vlm
+    (patch + text)."""
+
+    SPECS = PARAM_SPECS
+
+    def __init__(self, cfg: ArchConfig, remat: str = "full",
+                 device="cuda"):
+        super().__init__(cfg, remat, device)
         if cfg.family not in ("dense", "moe", "audio", "vlm"):
             raise NotImplementedError(
                 f"{cfg.name}: family {cfg.family!r} is not a TransformerLM")
-        self.cfg = cfg
-        self.remat = remat
         n_pre = cfg.moe.first_dense if cfg.moe else 0
-        self.embed = init_embed(cfg, device)
         self.blocks = nn.ModuleList(
             Block(cfg, cfg.moe is not None, device)
             for _ in range(cfg.n_layers - n_pre))
@@ -167,61 +218,10 @@ class TransformerLM(nn.Module):
         self.pre_blocks = nn.ModuleList(Block(cfg, False, device)
                                         for _ in range(n_pre))
 
-    @property
-    def device(self) -> torch.device:
-        return self.embed["tok"].device
-
     def layers(self) -> list[Block]:
         """Every block in the order the model runs them and the cache
         stacks them: the pre-blocks, then the stack."""
         return [*self.pre_blocks, *self.blocks]
-
-    # ------------------------------------------------------------ params
-    @torch.no_grad()
-    def init(self, generator: torch.Generator) -> "TransformerLM":
-        """Norm scales 1 and biases 0; every weight normal * d_in^-0.5,
-        drawn in float32 from ``generator`` (on the model's device) and
-        cast, d_in being the weight's contraction width (``fan_in``)."""
-        for name, p in self.named_parameters():
-            part, leaf = name.split(".")[-2:]
-            if leaf == "scale":
-                p.fill_(1.0)
-            elif leaf == "bias":
-                p.zero_()
-            else:
-                dense_init_(p, fan_in(part, leaf, p.shape), generator)
-        return self
-
-    def abstract(self):
-        """(params as meta tensors, logical-axis specs), both in the
-        reference's tree layout (``blocks`` stacked on L, ``pre_blocks``
-        a list of per-layer trees)."""
-        L = len(self.blocks)
-
-        def meta(shape, dtype):
-            return torch.empty(shape, dtype=dtype, device="meta")
-
-        shapes: dict = {}
-        specs: dict = {}
-        for (top, k), p in _top_items(self):
-            shapes.setdefault(top, {})[k] = meta(p.shape, p.dtype)
-            specs.setdefault(top, {})[k] = PARAM_SPECS[top, k]
-        for (part, k), p in _block_items(self.blocks[0]):
-            shapes.setdefault("blocks", {}).setdefault(part, {})[k] = \
-                meta((L, *p.shape), p.dtype)
-            specs.setdefault("blocks", {}).setdefault(part, {})[k] = \
-                (None, *PARAM_SPECS[part, k])
-        if len(self.pre_blocks):
-            shapes["pre_blocks"], specs["pre_blocks"] = [], []
-            for blk in self.pre_blocks:
-                s: dict = {}
-                sp: dict = {}
-                for (part, k), p in _block_items(blk):
-                    s.setdefault(part, {})[k] = meta(p.shape, p.dtype)
-                    sp.setdefault(part, {})[k] = PARAM_SPECS[part, k]
-                shapes["pre_blocks"].append(s)
-                specs["pre_blocks"].append(sp)
-        return shapes, specs
 
     # ------------------------------------------------------------ embed
     def _embed(self, batch) -> torch.Tensor:
@@ -254,16 +254,6 @@ class TransformerLM(nn.Module):
             return moe_ffn(self.cfg, blk.moe, x)
         return apply_mlp(self.cfg, blk.mlp, x), torch.zeros(
             (), dtype=torch.float32, device=x.device)
-
-    def _positions(self, h: torch.Tensor) -> torch.Tensor:
-        B, S = h.shape[0], h.shape[1]
-        return torch.arange(S, dtype=torch.int32,
-                            device=h.device).expand(B, S)
-
-    def _logits(self, h: torch.Tensor) -> torch.Tensor:
-        """Last-position logits in float32 against a float32 head."""
-        h = apply_norm(self.cfg, self.final_norm, h)
-        return h[:, -1].float() @ self.embed["head"].float()
 
     # ------------------------------------------------------------ train
     def _train_block(self, blk: Block, h, positions):
@@ -317,11 +307,6 @@ class TransformerLM(nn.Module):
         cache["pos"] = torch.empty((), dtype=torch.int32, device="meta")
         specs["pos"] = ()
         return cache, specs
-
-    def init_cache(self, batch: int, max_seq: int) -> dict:
-        shapes, _ = self.abstract_cache(batch, max_seq)
-        return {k: torch.zeros(s.shape, dtype=s.dtype, device=self.device)
-                for k, s in shapes.items()}
 
     def prefill(self, batch):
         """Process a full prompt; returns (last-token logits, cache)."""
@@ -386,8 +371,104 @@ class TransformerLM(nn.Module):
 
 
 # --------------------------------------------------------------------------
+# init, shared by every model class
+# --------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def init_params_(model: nn.Module, generator: torch.Generator,
+                 constants: dict[str, float] | None = None) -> None:
+    """Fill every parameter of ``model``: norm scales 1, biases 0 and
+    the leaves named in ``constants`` their value; every other weight
+    normal * d_in^-0.5 drawn from ``generator`` (``dense_init_``, d_in
+    by ``fan_in``)."""
+    consts = {"scale": 1.0, "bias": 0.0, **(constants or {})}
+    for name, p in model.named_parameters():
+        part, leaf = name.split(".")[-2:]
+        if leaf in consts:
+            p.fill_(consts[leaf])
+        else:
+            dense_init_(p, fan_in(part, leaf, p.shape), generator)
+
+
+# --------------------------------------------------------------------------
 # the reference's params tree
 # --------------------------------------------------------------------------
+#
+# A parameter's name in the module says where it sits in the reference's
+# tree.  The integers right after the top-level name index the leaf's
+# stacked leading axes: ``blocks.3.attn.wq`` is layer 3 of
+# ``["blocks"]["attn"]["wq"]`` (L stacked), zamba's ``mamba.2.4.ln.scale``
+# entry (2, 4) of ``["mamba"]["ln"]["scale"]`` (G and K stacked).  The
+# moe family's ``pre_blocks`` are the exception: the reference keeps
+# them as a list of per-layer trees, so ``pre_blocks.0.attn.wq`` is
+# ``["pre_blocks"][0]["attn"]["wq"]``, unstacked.
+
+_LISTS = ("pre_blocks",)
+
+
+def reference_path(name: str) -> tuple[tuple, tuple[int, ...]]:
+    """A parameter's name -> (its path in the reference's tree, its
+    index on that leaf's stacked axes; () for an unstacked leaf)."""
+    top, *rest = name.split(".")
+    if top in _LISTS:
+        return (top, int(rest[0]), *rest[1:]), ()
+    index = []
+    while rest and rest[0].isdigit():
+        index.append(int(rest.pop(0)))
+    return (top, *rest), tuple(index)
+
+
+def _get(tree, path: tuple):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _put(tree: dict, path: tuple, value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+def _nest(items: dict[tuple, object]) -> dict:
+    """{path: leaf} -> the nested tree, ``pre_blocks`` as a list."""
+    tree: dict = {}
+    for path, leaf in items.items():
+        _put(tree, path, leaf)
+    for top in _LISTS:
+        if top in tree:
+            tree[top] = [tree[top][i] for i in range(len(tree[top]))]
+    return tree
+
+
+def _stacks(names) -> dict[tuple, tuple[int, ...]]:
+    """The stacked axes' sizes of each path that ``names`` stack."""
+    sizes: dict[tuple, tuple[int, ...]] = {}
+    for name in names:
+        path, index = reference_path(name)
+        if index:
+            size = sizes.get(path, (0,) * len(index))
+            sizes[path] = tuple(max(n, i + 1) for n, i in zip(size, index))
+    return sizes
+
+
+def reference_abstract(model: nn.Module, specs_of: dict) -> tuple:
+    """(params as meta tensors, logical-axis specs) of ``model`` in the
+    reference's tree layout; ``specs_of`` maps (part, leaf) to the
+    leaf's spec, each stacked axis adding a leading None."""
+    params = dict(model.named_parameters())
+    sizes = _stacks(params)
+    shapes, specs = {}, {}
+    for name, p in params.items():
+        path, index = reference_path(name)
+        if path in shapes:
+            continue
+        lead = sizes.get(path, ())
+        shapes[path] = torch.empty((*lead, *p.shape), dtype=p.dtype,
+                                   device="meta")
+        specs[path] = (None,) * len(lead) + specs_of[path[-2:]]
+    return _nest(shapes), _nest(specs)
 
 
 def _from_numpy(a: np.ndarray) -> torch.Tensor:
@@ -413,68 +494,58 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy().copy()
 
 
-def _top_items(module: TransformerLM):
-    """(path in the reference's tree, parameter) of the embedding and
-    the final norm."""
-    top = [(("embed", k), p) for k, p in module.embed.items()]
-    top += [(("final_norm", k), p) for k, p in module.final_norm.items()]
-    return top
-
-
-def _block_items(blk: Block):
-    """(path under the reference's ``blocks``, parameter) of one block."""
-    for part in BLOCK_PARTS:
-        if hasattr(blk, part):
-            for k, p in getattr(blk, part).items():
-                yield (part, k), p
+def _reference_leaves(model: nn.Module, tree) -> dict[str, torch.Tensor]:
+    """Each parameter's slice of the reference's ``tree`` (tensors or
+    numpy-convertible leaves), keyed by parameter name; a stacked leaf
+    must have the model's count on each stacked axis."""
+    names = [n for n, _ in model.named_parameters()]
+    sizes = _stacks(names)
+    for top in _LISTS:
+        n = len({reference_path(name)[0][1] for name in names
+                 if name.startswith(f"{top}.")})
+        if len(tree.get(top, [])) != n:
+            raise ValueError(f"{top}: {len(tree.get(top, []))} layers, the "
+                             f"model has {n}")
+    whole: dict[tuple, torch.Tensor] = {}
+    out = {}
+    for name in names:
+        path, index = reference_path(name)
+        if path not in whole:
+            whole[path] = t = _leaf(_get(tree, path))
+            lead = sizes.get(path, ())
+            if tuple(t.shape[:len(lead)]) != lead:
+                raise ValueError(f"{'/'.join(path)}: stacked "
+                                 f"{tuple(t.shape[:len(lead)])}, the model "
+                                 f"has {lead}")
+        out[name] = whole[path][index]
+    return out
 
 
 @torch.no_grad()
-def params_from_reference(model: TransformerLM, tree) -> TransformerLM:
+def params_from_reference(model: nn.Module, tree) -> nn.Module:
     """Fill ``model`` from the reference's params tree (tensors or
-    numpy-convertible leaves; ``blocks`` stacked on a leading L axis,
-    ``pre_blocks`` a list), each leaf cast to its parameter's dtype on
-    its device."""
-    for path, p in _top_items(model):
-        p.copy_(_leaf(tree[path[0]][path[1]]))
-    blocks = tree["blocks"]
-    for (part, k), _ in _block_items(model.blocks[0]):
-        stacked = _leaf(blocks[part][k])
-        if stacked.shape[0] != len(model.blocks):
-            raise ValueError(f"blocks/{part}/{k}: {stacked.shape[0]} "
-                             f"layers, the model has {len(model.blocks)}")
-        for i, blk in enumerate(model.blocks):
-            getattr(blk, part)[k].copy_(stacked[i])
-    pre = tree.get("pre_blocks", [])
-    if len(pre) != len(model.pre_blocks):
-        raise ValueError(f"pre_blocks: {len(pre)} layers, the model has "
-                         f"{len(model.pre_blocks)}")
-    for sub, blk in zip(pre, model.pre_blocks):
-        for (part, k), p in _block_items(blk):
-            p.copy_(_leaf(sub[part][k]))
+    numpy-convertible leaves, in the layout ``reference_path`` reads),
+    each leaf cast to its parameter's dtype on its device."""
+    leaves = _reference_leaves(model, tree)
+    for name, p in model.named_parameters():
+        p.copy_(leaves[name])
     return model
 
 
-def params_to_reference(model: TransformerLM) -> dict:
-    """The reference's params tree of ``model``: numpy leaves, ``blocks``
-    stacked on a leading L axis, ``pre_blocks`` a list (bfloat16
-    parameters as float32, which holds them exactly)."""
-    tree: dict = {}
-    for (top, k), p in _top_items(model):
-        tree.setdefault(top, {})[k] = _to_numpy(p)
-    blocks: dict = {}
-    for (part, k), _ in _block_items(model.blocks[0]):
-        blocks.setdefault(part, {})[k] = np.stack(
-            [_to_numpy(getattr(blk, part)[k]) for blk in model.blocks])
-    tree["blocks"] = blocks
-    if len(model.pre_blocks):
-        tree["pre_blocks"] = []
-        for blk in model.pre_blocks:
-            sub: dict = {}
-            for (part, k), p in _block_items(blk):
-                sub.setdefault(part, {})[k] = _to_numpy(p)
-            tree["pre_blocks"].append(sub)
-    return tree
+def params_to_reference(model: nn.Module) -> dict:
+    """The reference's params tree of ``model``: numpy leaves (bfloat16
+    parameters as float32, which holds them exactly), stacked leaves
+    stacked, ``pre_blocks`` a list."""
+    tree = _reference_tree(dict(model.named_parameters()))
+    return _map(tree, _to_numpy)
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map(v, fn) for v in tree]
+    return fn(tree)
 
 
 # --------------------------------------------------------------------------
@@ -482,55 +553,30 @@ def params_to_reference(model: TransformerLM) -> dict:
 # --------------------------------------------------------------------------
 
 
-def _ref_path(name: str) -> tuple[tuple, int | None]:
-    """A parameter's name in the module (``blocks.3.attn.wq``) as its
-    path in the reference's tree and its layer in the stack (None
-    outside it): ``pre_blocks.0.attn.wq`` is ``("pre_blocks", 0,
-    "attn", "wq")``, a list entry of its own."""
-    parts = name.split(".")
-    if parts[0] == "blocks":
-        return ("blocks", parts[2], parts[3]), int(parts[1])
-    if parts[0] == "pre_blocks":
-        return ("pre_blocks", int(parts[1]), parts[2], parts[3]), None
-    return tuple(parts), None
-
-
 def _reference_tree(leaves: dict[str, torch.Tensor]) -> dict:
     """Leaves keyed by parameter name -> the reference's nested tree of
-    fresh host tensors, each ``blocks`` leaf stacked on L (copied layer
-    by layer into one host tensor, so the card holds no second copy)
-    and ``pre_blocks`` a list."""
-    tree: dict = {}
-    layers: dict[tuple, dict[int, torch.Tensor]] = {}
-    pre: dict[int, dict] = {}
+    fresh host tensors in their dtypes: each stacked leaf copied entry
+    by entry into one host tensor (so the card holds no second copy),
+    ``pre_blocks`` a list."""
+    sizes = _stacks(leaves)
+    items: dict[tuple, torch.Tensor] = {}
     for name, t in leaves.items():
-        path, layer = _ref_path(name)
-        if layer is not None:
-            layers.setdefault(path, {})[layer] = t.detach()
+        path, index = reference_path(name)
+        if not index:
+            items[path] = t.detach().to("cpu", copy=True)
             continue
-        host = t.detach().to("cpu", copy=True)
-        if path[0] == "pre_blocks":
-            pre.setdefault(path[1], {}).setdefault(path[2], {})[path[3]] = \
-                host
-        else:
-            tree.setdefault(path[0], {})[path[1]] = host
-    for (_, part, k), by_layer in layers.items():
-        first = by_layer[0]
-        out = torch.empty((len(by_layer), *first.shape), dtype=first.dtype)
-        for i in range(len(by_layer)):
-            out[i].copy_(by_layer[i])
-        tree.setdefault("blocks", {}).setdefault(part, {})[k] = out
-    if pre:
-        tree["pre_blocks"] = [pre[i] for i in range(len(pre))]
-    return tree
+        if path not in items:
+            items[path] = torch.empty((*sizes[path], *t.shape),
+                                      dtype=t.dtype)
+        items[path][index].copy_(t.detach())
+    return _nest(items)
 
 
 def train_state_to_reference(state: dict) -> dict:
     """The reference's train-state tree of a port train state
-    (``steps.init_train_state``): params, ``m`` and ``v`` with
-    ``blocks`` stacked on L, and ``step``; fresh host tensors in the
-    state's dtypes (bf16 stays bf16), the layout a train checkpoint
-    keeps."""
+    (``steps.init_train_state``): params, ``m`` and ``v`` in the
+    reference's layout, and ``step``; fresh host tensors in the state's
+    dtypes (bf16 stays bf16), the layout a train checkpoint keeps."""
     opt = state["opt"]
     return {"params": _reference_tree(state["params"]),
             "opt": {"m": _reference_tree(opt["m"]),
@@ -538,7 +584,7 @@ def train_state_to_reference(state: dict) -> dict:
                     "step": opt["step"].detach().to("cpu", copy=True)}}
 
 
-def train_state_from_reference(model: TransformerLM, tree) -> dict:
+def train_state_from_reference(model: nn.Module, tree) -> dict:
     """A port train state from the reference's tree (numpy-convertible
     or tensor leaves): the params are copied into ``model``, which the
     state then holds; ``m``, ``v`` (their stored dtype) and ``step``
@@ -548,16 +594,8 @@ def train_state_from_reference(model: TransformerLM, tree) -> dict:
     dev = model.device
 
     def moments(sub) -> dict[str, torch.Tensor]:
-        out = {}
-        for name in params:
-            path, layer = _ref_path(name)
-            leaf = sub
-            for key in path:
-                leaf = leaf[key]
-            t = _leaf(leaf)
-            out[name] = (t if layer is None else t[layer]).to(
-                dev, copy=True)
-        return out
+        return {name: t.to(dev, copy=True)
+                for name, t in _reference_leaves(model, sub).items()}
 
     opt = tree["opt"]
     step = _leaf(opt["step"]).to(device=dev, dtype=torch.int32)

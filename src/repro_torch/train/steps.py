@@ -5,8 +5,8 @@ tree keyed by the model's parameter names (``blocks.3.attn.wq``); its
 ``params`` are the model's own parameters, which ``model.loss`` reads
 and the step updates in place.  ``models.transformer.
 train_state_to_reference`` / ``train_state_from_reference`` move it to
-and from the reference's layout (``blocks`` stacked on L), the layout
-train checkpoints keep.
+and from the reference's layout (``blocks`` stacked on L, zamba's
+``mamba`` on (G, K)), the layout train checkpoints keep.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.models.transformer import reference_path
 from repro_torch.train.optimizer import (
     OptConfig,
     abstract_opt_state,
@@ -26,10 +27,13 @@ from repro_torch.train.optimizer import (
 
 def reference_decay(params: dict) -> dict[str, bool]:
     """Where the reference's AdamW decays: at ``p.ndim >= 2`` in its
-    tree, where each block leaf is stacked on L.  So every block leaf
-    decays, norm scales included, and of the leaves above the stack
-    only the 1-D ones (the final norm) do not."""
-    return {n: p.ndim + n.startswith("blocks.") >= 2
+    tree, where a stacked leaf carries its stacked axes
+    (``transformer.reference_path``).  So every leaf of ``blocks`` (L)
+    and of zamba's ``mamba`` (G, K) decays, norm scales and the (H,)
+    SSM leaves included; of the unstacked leaves (the embedding, final
+    norm, rwkv's ``ln_in``, zamba's ``shared`` block, the moe family's
+    ``pre_blocks``) only the matrices do."""
+    return {n: p.ndim + len(reference_path(n)[1]) >= 2
             for n, p in params.items()}
 
 
@@ -106,7 +110,7 @@ def init_train_state(model, generator: torch.Generator,
 
 def abstract_train_state(model, opt_dtype=torch.float32):
     """(state as meta tensors, state specs), in the reference's layout
-    (``blocks`` stacked on L) — what a train checkpoint holds; no
+    (``model.abstract()``) — what a train checkpoint holds; no
     allocation."""
     shapes, specs = model.abstract()
     return ({"params": shapes, "opt": abstract_opt_state(shapes, opt_dtype)},

@@ -46,7 +46,8 @@ def test_import_pulls_in_no_jax_and_no_reference():
                 "starcoder2_7b", "yi_9b", "zamba2_2p7b")),
             "repro_torch.models", "repro_torch.models.layers",
             "repro_torch.models.attention", "repro_torch.models.inputs",
-            "repro_torch.models.moe",
+            "repro_torch.models.moe", "repro_torch.models.ssm",
+            "repro_torch.models.recurrent",
             "repro_torch.models.transformer", "repro_torch.models.archs",
             "repro_torch.serve.engine", "repro_torch.serve.steps",
             "repro_torch.launch", "repro_torch.launch.serve",
