@@ -131,6 +131,21 @@
     steps, batch and lr: rwkv6_3b at 1 of its 32 layers, zamba2_2p7b at
     18 of its 54 (3 of its 9 groups, each with the shared block); every
     loss finite, the last below the first, ``aux_loss`` 0.
+23. Multi-device on one card: two gloo ranks spawned on the card (NCCL
+    refuses two ranks on one device).  (a) ``make_compressed_train_step``
+    through ``Trainer`` on a (pod 2, data 1, model 1) mesh: yi_9b at its
+    published widths with 2 layers, the train phase's corpus and lr, 4
+    steps, each rank reading its half of every 4 x 4096-token batch
+    through packed ingest; every loss finite and the last below the
+    first, params bit-equal across the ranks after every step (a digest
+    of their bits), and step 2's synced gradient recomputed on the host
+    from both ranks' local gradients and errors (int32 sums, scale sums
+    and new errors exact, the bf16 result within 1 ulp); step walls and
+    the bytes each rank sends for the pod hop.  (b) One
+    deepseek_v2_lite_16b MoE layer at full width under fsdp on (data 2):
+    each rank's output bit-equal to the single-card ``_moe_math`` on its
+    tokens with the whole weights; its megatron body in float32 on (data
+    1, model 2) within 1e-5 of the largest output.
 
 Each path runs with the kernels' launch counts set to 0 just before it
 and read just after; every kernel of a path must have launched (the
@@ -138,7 +153,7 @@ checkpoint and KV paths decode nothing and launch no kernel, nor does
 the flash backward; the serve path launches ``bitunpack`` in its
 analytics scans, the train paths once a step; so do the mixture-of-
 experts and recurrent serve and train paths, and the invariants launch
-none).  The
+none; in the multi-device path each rank launches it once a step).  The
 line before the last two is the ``kernels`` JSON object; the last line
 is ``{"ok": true, "device": {...}}``; any failure raises and the exit
 code is non-zero.  Needs a CUDA device and a checkout of the
@@ -159,6 +174,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -248,6 +264,19 @@ SSM_TRAIN_WHY = {
                    "steps and 9 flash passes issued from the host); 18, "
                    "3 groups and their shared blocks, keep the phase near "
                    "a minute"}
+# multi-device on one card (phase 23): 2 gloo ranks on cuda:0; (a) yi_9b
+# at full width with 2 layers on (pod 2, data 1, model 1), 4 steps of the
+# train phase's batch, each rank its half; step 2's synced gradient
+# recomputed on the host for every leaf of at most 20M elements a layer;
+# (b) one deepseek_v2_lite_16b MoE layer under fsdp on (data 2), 4 x 2048
+# tokens (4096 a rank), and its megatron body on (data 1, model 2) in
+# float32 over the first 2048 (gloo takes CUDA all_gather and
+# reduce_scatter on the H100's machine: scripts/gloo_cuda_probe.py)
+MD_RANKS, MD_LAYERS, MD_STEPS, MD_CHECK_STEP = 2, 2, 4, 2
+MD_HOST_NUMEL = 20_000_000
+MD_MOE_TOKENS = (4, 2048)
+MD_MEGATRON_TOL = 1e-5         # of the largest output: two F halves summed
+MD_DEADLINE_S = 600
 SSM_INVARIANT_BF16 = (192, 64)
 SSM_F32_LAYERS = {"rwkv6_3b": 32, "zamba2_2p7b": 6}
 SSM_F32_WHOLE = (256, 256)
@@ -270,7 +299,7 @@ def _load_port():
     from repro_torch.kernels import bitunpack as bu
     from repro_torch.kernels import block_agg as ba
     from repro_torch.kernels import filter_agg as fa
-    from repro_torch.models import archs, attention, moe
+    from repro_torch.models import archs, attention, moe, transformer
     from repro_torch.serve import engine, kvcache
     from repro_torch.train import optimizer, trainer
     return argparse.Namespace(
@@ -279,7 +308,7 @@ def _load_port():
         pipeline=pipeline, ingest=fused_ingest, elastic=elastic,
         ckpt=ckpt, kvcache=kvcache, pytree=pytree, configs=configs,
         archs=archs, engine=engine, attention=attention, moe=moe,
-        optimizer=optimizer, trainer=trainer)
+        transformer=transformer, optimizer=optimizer, trainer=trainer)
 
 
 def card_line() -> str:
@@ -1439,7 +1468,8 @@ TRAIN_PATHS = ("train", "train restart")
 MOE_PATHS = ("moe serve", "moe train")
 SSM_PATHS = tuple(f"{a} {p}" for a in SSM_ARCHS
                   for p in ("serve", "train"))
-PATHS = PLANE_PATHS + TRAIN_PATHS + MOE_PATHS + SSM_PATHS
+PATHS = PLANE_PATHS + TRAIN_PATHS + MOE_PATHS + SSM_PATHS + (
+    "multi-device",)
 
 
 def table_planes(P, store, table: dict, seed: int, card: str) -> dict:
@@ -2306,6 +2336,373 @@ def ssm_paths(P, dev, seed: int, card: str) -> dict:
 
 
 # --------------------------------------------------------------------------
+# multi-device on one card: two gloo ranks on cuda:0
+# --------------------------------------------------------------------------
+
+
+def _param_digest(model) -> torch.Tensor:
+    """Two position-weighted 64-bit sums of each parameter's bits, in
+    2^24-element chunks: equal on two ranks when their params are."""
+    out = []
+    for p in model.parameters():
+        flat = p.detach().reshape(-1)
+        flat = flat.view(torch.int16 if p.element_size() == 2
+                         else torch.int32)
+        h = torch.zeros(2, dtype=torch.int64, device=p.device)
+        for i in range(0, flat.numel(), 1 << 24):
+            x = flat[i:i + (1 << 24)].to(torch.int64)
+            w = torch.arange(i, i + x.numel(), device=p.device) \
+                % 1_000_003 + 1
+            h[0] += x.sum()
+            h[1] += (x * w).sum()
+        out.append(h)
+    return torch.stack(out).cpu()
+
+
+def _md_host_leaves(model) -> list[str]:
+    """The parameters whose synced gradient the host recomputes: every
+    reference leaf (its layers together) of at most ``MD_HOST_NUMEL``
+    elements a layer: the norms and the attention projections."""
+    return [n for n, p in model.named_parameters()
+            if p.numel() <= MD_HOST_NUMEL]
+
+
+def _md_train(P, rank: int, tmp: Path, seed: int) -> dict:
+    """(a): yi_9b at full width, ``MD_LAYERS`` layers, on a (pod 2,
+    data 1, model 1) mesh through ``make_compressed_train_step`` fed by
+    packed ingest: each rank's half of every batch."""
+    from repro_torch.distributed import compression
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import mesh as lmesh
+
+    dev = torch.device(DEVICE)
+    mesh = lmesh.make_smoke_mesh((MD_RANKS, 1, 1), ("pod", "data", "model"))
+    pod = mesh.get_coordinate()[0]
+    rules = shd.MeshRules(mesh, strategy="megatron_sp")
+    cfg = dataclasses.replace(P.configs.get_config(TRAIN_ARCH),
+                              n_layers=MD_LAYERS)
+    model = P.archs.build_model(cfg, remat="full", device=dev)
+    t = time.perf_counter()
+    store, vol, _ = _train_world(P, cfg, seed)
+    world_s = time.perf_counter() - t
+    host = _md_host_leaves(model)
+    digests, saved = [], {}
+
+    def copy(t: torch.Tensor) -> np.ndarray:
+        t = t.detach()
+        return (t.float() if t.is_floating_point() else t).to(
+            "cpu", copy=True).numpy()
+
+    def observe(grads, err, synced, sums):
+        for n in host:
+            saved.update({f"g/{n}": copy(grads[n]), f"e/{n}": copy(err[n]),
+                          f"synced/{n}": copy(synced[n]),
+                          f"tot/{n}": copy(sums[n][0]),
+                          f"s_tot/{n}": copy(sums[n][1])})
+
+    try:
+        loader = P.pipeline.ObjectDataLoader(
+            vol, "corpus", global_batch=TRAIN_BATCH, dp_rank=pod,
+            dp_size=MD_RANKS, seed=seed, packed=True, prefetch=2)
+        opt = P.optimizer.OptConfig(lr=TRAIN_LR,
+                                    warmup_steps=max(MD_STEPS // 10, 2),
+                                    total_steps=MD_STEPS)
+        step = compression.make_compressed_train_step(model, opt, rules)
+        calls = []
+
+        def step_fn(state, batch):
+            calls.append(1)
+            return step(state, batch, observe=observe
+                        if len(calls) == MD_CHECK_STEP else None)
+
+        tr = P.trainer.Trainer(
+            model, loader, store, opt=opt,
+            cfg=P.trainer.TrainerConfig(total_steps=MD_STEPS,
+                                        ckpt_every=MD_STEPS + 1,
+                                        log_every=MD_STEPS,
+                                        packed_ingest=True),
+            step_fn=step_fn, log=lambda msg: None)
+        state, _ = tr.init_or_restore(seed)
+        state = compression.init_compressed_state(state)
+        _sync(dev)
+
+        def on_step(n: int) -> None:
+            digests.append(_param_digest(model))
+            if n == MD_CHECK_STEP:
+                saved.update({f"e_new/{k}": copy(state["err"][k][0])
+                              for k in host})
+
+        _zero_counts(P)                  # the path's run starts here
+        tr.run(state, start_step=0, on_step=on_step)
+        launches = _counts(P)            # ... and ends here
+        peak = torch.cuda.max_memory_allocated(dev)
+        tr.loader.close()
+    finally:
+        store.close()
+    np.savez(tmp / f"check{rank}.npz", **saved)
+    n_elems = sum(p.numel() for p in model.parameters())
+    n_leaves = len({P.transformer.reference_path(n)[0]
+                    for n, _ in model.named_parameters()})
+    return {"pod": pod, "params": n_elems, "losses": [
+        r["loss"] for r in tr.history], "step_s": [
+        r["wall_s"] for r in tr.history], "grad_norms": [
+        r["grad_norm"] for r in tr.history],
+        "digests": [d.tolist() for d in digests],
+        "hop_bytes_per_step": 4 * n_elems + 4 * n_leaves,
+        "reference_leaves": n_leaves, "corpus_write_s": world_s,
+        "peak_mem_GB": peak / 1e9, "launches": launches,
+        "host_leaves": host}
+
+
+def _md_moe(P, rank: int, seed: int) -> dict:
+    """(b): one deepseek_v2_lite_16b MoE layer at full width under fsdp
+    on (data 2): each rank's output against the single-card math on its
+    tokens with the whole weights."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.models.layers import dense_init_
+    from repro_torch.models.transformer import PARAM_SPECS, fan_in
+
+    dev = torch.device(DEVICE)
+    mesh = lmesh.make_smoke_mesh((MD_RANKS,), ("data",))
+    rules = shd.MeshRules(mesh, strategy="fsdp")
+    cfg = P.configs.get_config(MOE_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    whole = P.moe.init_moe(cfg, device=dev)
+    for k, w in whole.items():
+        dense_init_(w, fan_in("moe", k, w.shape), gen)
+    x = (torch.randn(MD_MOE_TOKENS + (cfg.d_model,), generator=gen,
+                     device=dev) * 0.5).to(cfg.compute_dtype)
+    local = {k: shd.local_shard(w.detach(), rules.sharding(
+        *PARAM_SPECS[("moe", k)])) for k, w in whole.items()}
+    xs = shd.local_shard(x, rules.sharding("tokens", None, None))
+    T = xs.shape[0] * xs.shape[1]
+    walls = {}
+    with torch.no_grad():
+        shared = tuple(whole[k] for k in ("sw1", "sw3", "sw2"))
+        for _ in range(2):               # the second call is timed
+            _sync(dev)
+            t = time.perf_counter()
+            want, aux, z = P.moe._moe_math(
+                cfg, xs.reshape(T, -1), whole["router"], whole["w1"],
+                whole["w3"], whole["w2"], shared)
+            _sync(dev)
+            walls["single_card_s"] = time.perf_counter() - t
+            _sync(dev)
+            t = time.perf_counter()
+            with shd.use_rules(rules):
+                got, total = P.moe.moe_ffn(cfg, local, xs)
+            _sync(dev)
+            walls["sharded_s"] = time.perf_counter() - t
+    mean = torch.stack([aux, z]).float()
+    dist.all_reduce(mean, group=mesh.get_group("data"))
+    mean = mean / MD_RANKS
+    want = want.to(xs.dtype).reshape(xs.shape)
+    res = {"tokens": T, "out_equal": bool(torch.equal(got, want)),
+           "max_abs_err": float((got.float() - want.float()).abs().max()),
+           "aux_plus_zloss": float(total),
+           "mean_single_card": float(mean.sum()),
+           "local_w1": list(local["w1"].shape), **walls}
+    del got, want, local
+
+    # the megatron body on (data 1, model 2) in float32: the sequence
+    # all-gathered, each rank its F half, the output reduce-scattered
+    mesh = lmesh.make_smoke_mesh((1, MD_RANKS), ("data", "model"))
+    rules = shd.MeshRules(mesh, strategy="megatron_sp")
+    cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32,
+                                compute_dtype=torch.float32)
+    w32 = {k: w.detach().float() for k, w in whole.items()}
+    del whole
+    x32 = x[:1].float()
+    local = {k: shd.local_shard(w, rules.sharding(*PARAM_SPECS[("moe", k)]))
+             for k, w in w32.items()}
+    xs = shd.local_shard(x32, rules.sharding("dp", "act_seq", None))
+    with torch.no_grad():
+        _sync(dev)
+        t = time.perf_counter()
+        with shd.use_rules(rules):
+            got, _ = P.moe.moe_ffn(cfg32, local, xs)
+        _sync(dev)
+        res["megatron_s"] = time.perf_counter() - t
+        want = P.moe._moe_math(
+            cfg32, x32.reshape(-1, cfg.d_model), w32["router"], w32["w1"],
+            w32["w3"], w32["w2"], tuple(w32[k] for k in ("sw1", "sw3",
+                                                          "sw2")))[0]
+    half = want.reshape(x32.shape).chunk(MD_RANKS, dim=1)[
+        mesh.get_coordinate()[1]]
+    res["megatron"] = {
+        "tokens": x32.shape[1], "local_w1": list(local["w1"].shape),
+        "max_abs_err": float((got - half).abs().max()),
+        "max_abs_out": float(half.abs().max())}
+    return res
+
+
+def _md_rank(rank: int, world: int, init: str, tmp: str, seed: int) -> None:
+    import torch.distributed as dist
+    P = _load_port()
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=world)
+    try:
+        res = {"train": _md_train(P, rank, Path(tmp), seed)}
+        _free_card()
+        res["moe"] = _md_moe(P, rank, seed)
+        (Path(tmp) / f"rank{rank}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def _md_host_check(tmp: Path, host: list[str], leaf_of) -> dict:
+    """The synced gradient of step ``MD_CHECK_STEP`` recomputed on the
+    host from both ranks' local gradients and errors, in numpy: the
+    reference's formula with one scale per reference leaf."""
+    inv127 = np.float32(1) / np.float32(127)
+    ranks = [np.load(tmp / f"check{r}.npz") for r in range(MD_RANKS)]
+    groups: dict = {}
+    for n in host:
+        groups.setdefault(leaf_of(n), []).append(n)
+    tot_bad = s_bad = e_bad = 0
+    ulps = 0
+    elems = 0
+    for names in groups.values():
+        xs = [{n: r[f"g/{n}"] + r[f"e/{n}"] for n in names} for r in ranks]
+        scales = [np.maximum(np.float32(max(np.abs(x[n]).max()
+                                            for n in names)) * inv127,
+                             np.float32(1e-12)) for x in xs]
+        s_tot = np.float32(scales[0] + scales[1])
+        for n in names:
+            qs = [np.clip(np.rint(x[n] / s), -127, 127)
+                  for x, s in zip(xs, scales)]
+            tot = (qs[0].astype(np.int32) + qs[1].astype(np.int32))
+            dec = (tot.astype(np.float32) * np.float32(s_tot / 2)) \
+                / np.float32(2)
+            bf = torch.from_numpy(dec).to(torch.bfloat16).float().numpy()
+            for r, x, q, s in zip(ranks, xs, qs, scales):
+                tot_bad += int((r[f"tot/{n}"] != tot).sum())
+                s_bad += int(r[f"s_tot/{n}"] != s_tot)
+                e_new = (x[n].astype(np.float64)
+                         - q.astype(np.float64) * np.float64(s)
+                         ).astype(np.float32)
+                e_bad += int((r[f"e_new/{n}"] != e_new).sum())
+                got = torch.from_numpy(r[f"synced/{n}"]).to(
+                    torch.bfloat16).view(torch.int16).int()
+                want = torch.from_numpy(bf).to(torch.bfloat16).view(
+                    torch.int16).int()
+                ulps = max(ulps, int((got - want).abs().max()))
+            elems += tot.size
+    return {"elements": elems, "reference_leaves": len(groups),
+            "int32_sums_differing": tot_bad, "scale_sums_differing": s_bad,
+            "new_errors_differing": e_bad, "synced_max_bf16_ulps": ulps}
+
+
+def multi_device_path(P, dev, seed: int, card: str) -> dict:
+    """Phase 23: ``MD_RANKS`` gloo ranks on this one card (NCCL refuses
+    two ranks on one device): (a) the compressed train step, (b) the
+    sharded MoE token path.  Collectives on CUDA tensors through gloo."""
+    _free_card()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        tmp = Path(d)
+        ctx = torch.multiprocessing.spawn(
+            _md_rank, args=(MD_RANKS, f"file://{tmp}/pg", str(tmp), seed),
+            nprocs=MD_RANKS, join=False)
+        deadline = time.monotonic() + MD_DEADLINE_S
+        try:
+            while not ctx.join(timeout=1.0):
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"multi-device: a rank did not "
+                                         f"finish in {MD_DEADLINE_S} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+        ranks = [json.loads((tmp / f"rank{r}.json").read_text())
+                 for r in range(MD_RANKS)]
+        train = [r["train"] for r in ranks]
+        check = _md_host_check(
+            tmp, train[0]["host_leaves"],
+            lambda n: P.transformer.reference_path(n)[0])
+    wall = time.perf_counter() - t0
+    moe = [r["moe"] for r in ranks]
+    launches = {k: sum(t["launches"][k] for t in train)
+                for k in ("bitunpack", "filter_agg", "block_agg")}
+    same = [a == b for a, b in zip(train[0]["digests"],
+                                   train[1]["digests"])]
+    res = {"ranks": MD_RANKS, "wall_s": wall, "check_step": MD_CHECK_STEP,
+           "host_check": check, "params_equal_after_each_step": same,
+           "train": [{k: v for k, v in t.items()
+                      if k not in ("digests", "host_leaves")}
+                     for t in train],
+           "moe": moe, "launches": launches}
+    print("multi-device: " + json.dumps(res), flush=True)
+    t = train[0]
+    print(f"multi-device (a): {TRAIN_ARCH} {MD_LAYERS} layers "
+          f"({t['params']} params) on (pod {MD_RANKS}, data 1, model 1), "
+          f"{MD_STEPS} packed-ingest steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+          f"tokens, each rank its half: loss {t['losses'][0]:.4f} -> "
+          f"{t['losses'][-1]:.4f}; step walls (s) rank 0 "
+          f"{[round(w, 4) for w in t['step_s']]}, rank 1 "
+          f"{[round(w, 4) for w in train[1]['step_s']]}; pod hop "
+          f"{t['hop_bytes_per_step']} B a rank a step (int32 sums of "
+          f"{t['params']} elements + {t['reference_leaves']} float32 "
+          f"scales; int8 would be {t['params'] + 4 * t['reference_leaves']}"
+          f" B); params equal across ranks after each step: {same}; step "
+          f"{MD_CHECK_STEP} recomputed on the host over "
+          f"{check['elements']} elements: {check}; peak memory "
+          f"{[round(x['peak_mem_GB'], 3) for x in train]} GB; bitunpack "
+          f"launches {[x['launches']['bitunpack'] for x in train]}  "
+          f"[{card}]", flush=True)
+    print(f"multi-device (b): {MOE_ARCH} MoE layer at full width under "
+          f"fsdp on (data {MD_RANKS}), {moe[0]['tokens']} tokens a rank, "
+          f"w1 shard {moe[0]['local_w1']}: output equal to the single-card "
+          f"math {[m['out_equal'] for m in moe]} (max |err| "
+          f"{[m['max_abs_err'] for m in moe]}), aux + zloss "
+          f"{moe[0]['aux_plus_zloss']!r} against the ranks' mean "
+          f"{moe[0]['mean_single_card']!r}; sharded "
+          f"{[round(m['sharded_s'], 4) for m in moe]} s, single card "
+          f"{[round(m['single_card_s'], 4) for m in moe]} s; the "
+          f"megatron body in float32 on (data 1, model {MD_RANKS}), "
+          f"{moe[0]['megatron']['tokens']} tokens, w1 shard "
+          f"{moe[0]['megatron']['local_w1']}: max |err| against the "
+          f"single-card math "
+          f"{[m['megatron']['max_abs_err'] for m in moe]} of outputs up to "
+          f"{moe[0]['megatron']['max_abs_out']:.4f} (gate {MD_MEGATRON_TOL}"
+          f" of that), {[round(m['megatron_s'], 4) for m in moe]} s; phase "
+          f"{wall:.1f} s  [{card}]", flush=True)
+    print(f"reduced: multi-device at {MD_LAYERS} of {TRAIN_ARCH}'s 48 "
+          f"layers and {MD_STEPS} steps, 2 ranks sharing one card (the "
+          f"production mesh is (2, 16, 16)); one MoE layer of 26")
+    if launches != {"bitunpack": MD_RANKS * MD_STEPS, "filter_agg": 0,
+                    "block_agg": 0}:
+        raise AssertionError(f"multi-device launches {launches}")
+    for x in train:
+        if x["launches"]["bitunpack"] != MD_STEPS:
+            raise AssertionError(f"multi-device: rank launches {x}")
+        if not all(np.isfinite(x["losses"])) or \
+                not x["losses"][-1] < x["losses"][0]:
+            raise AssertionError(f"multi-device: losses {x['losses']}")
+    if len(same) != MD_STEPS or not all(same):
+        raise AssertionError(f"multi-device: params differ across ranks "
+                             f"{same}")
+    if check["int32_sums_differing"] or check["scale_sums_differing"] \
+            or check["new_errors_differing"] \
+            or check["synced_max_bf16_ulps"] > 1:
+        raise AssertionError(f"multi-device: host recomputation {check}")
+    for m in moe:
+        if not m["out_equal"]:
+            raise AssertionError(f"multi-device: sharded MoE {m}")
+        meg = m["megatron"]
+        if not meg["max_abs_err"] <= MD_MEGATRON_TOL * meg["max_abs_out"]:
+            raise AssertionError(f"multi-device: megatron body {meg}")
+        if abs(m["aux_plus_zloss"] - m["mean_single_card"]) \
+                > 1e-6 * abs(m["mean_single_card"]):
+            raise AssertionError(f"multi-device: MoE aux {m}")
+    return res
+
+
+# --------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -2469,6 +2866,8 @@ def main(argv=None) -> int:
     lap("mixture of experts")
     planes.update(ssm_paths(P, dev, args.seed, card))
     lap("recurrent families")
+    planes["multi-device"] = multi_device_path(P, dev, args.seed, card)
+    lap("multi-device on one card")
 
     scans = {"scan": res["launches"],
              "packed ingest": ing["launches"]["bitunpack"],

@@ -8,5 +8,7 @@ store to the card (``data/``), the store's client and maintenance
 planes (``core``: Skyhook driver, scan sessions, fault injection,
 maintenance daemons; ``distributed.elastic``: cluster resize), and
 train state and KV-cache pages kept as store objects (``checkpoint``,
-``serve.kvcache``; trees keyed by ``pytree``).  Importing it does no
-CUDA work; kernels are built on first use."""
+``serve.kvcache``; trees keyed by ``pytree``), the models, serving and
+training, and the multi-device path (``distributed``: placements over a
+``DeviceMesh``, the int8 pod hop; ``launch.mesh``).  Importing it does
+no CUDA work; kernels are built on first use."""

@@ -1,2 +1,4 @@
-"""Distributed layer of the port: the mesh rules the device pushdown
-reads (``sharding``) and cluster resize planning (``elastic``)."""
+"""Distributed layer of the port: the mesh rules and placements over a
+``DeviceMesh`` (``sharding``), the int8 pod hop with error feedback and
+its train step (``compression``), and cluster resize planning
+(``elastic``)."""

@@ -17,12 +17,18 @@ Logical axes:
 and ``<axis>_nopod``, the same axis without "pod".
 
 ``spec(*logical)`` is a tuple with one entry per tensor dimension: a
-mesh axis name, a tuple of them, or ``None``.  Under the port's torch
-SPMD each rank holds its own shard; code that finds active rules
-reduces its partials over ``mesh.get_group(axis)`` for each axis in
-``dp_axes`` (``core.pushdown_torch``).  ``hint`` places nothing: the
-serving path runs on one card, and tensor placement over a mesh waits
-for the training slice.
+mesh axis name, a tuple of them, or ``None``.  ``sharding(*logical)``
+and ``named(spec)`` turn a spec into a :class:`Sharding`, the mesh and
+one DTensor placement per mesh dimension (the counterpart of
+``NamedSharding``), and :func:`local_shard` cuts a rank's block of a
+whole tensor by it.
+
+Under the port's torch SPMD each rank holds its own shard and runs its
+collectives over ``mesh.get_group(axis)`` (:func:`axes_group` for a
+tuple of axes) through ``torch.distributed``: the device pushdown
+(``core.pushdown_torch``), the sharded MoE bodies (``models.moe``) and
+the int8 pod hop (``distributed.compression``).  The models see local
+tensors, never global ones, so ``hint`` places nothing.
 """
 
 from __future__ import annotations
@@ -30,7 +36,8 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
-from typing import TYPE_CHECKING, Any
+import math
+from typing import TYPE_CHECKING, Any, NamedTuple
 
 if TYPE_CHECKING:
     import torch
@@ -132,6 +139,12 @@ class MeshRules:
         """The mesh axes of each tensor dimension."""
         return tuple(self.resolve(ax) for ax in logical)
 
+    def sharding(self, *logical: Any) -> "Sharding":
+        return self.named(self.spec(*logical))
+
+    def named(self, spec: tuple) -> "Sharding":
+        return Sharding(self.mesh, placements(self.mesh, spec))
+
     # ------------------------------------------------------------ moe
     @property
     def token_axes(self) -> tuple[str, ...]:
@@ -157,9 +170,146 @@ def use_rules(rules: MeshRules | None):
 
 
 def hint(x: "torch.Tensor", *logical: Any) -> "torch.Tensor":
-    """``x`` itself.  Under active rules the logical axes are resolved
-    first, so an unknown name raises as it does in the reference."""
+    """``x`` itself: the port's models see each rank's local tensor,
+    which a constraint on the global layout cannot move.  Under active
+    rules the logical axes are resolved first, so an unknown name raises
+    as it does in the reference."""
     rules = _ACTIVE.get()
     if rules is not None:
         rules.spec(*logical)
     return x
+
+
+# --------------------------------------------------------------------------
+# placements over a DeviceMesh
+# --------------------------------------------------------------------------
+
+
+class Sharding(NamedTuple):
+    """A tensor's layout over a mesh: ``mesh`` and one DTensor placement
+    per mesh dimension, so ``distribute_tensor(x, *sharding)`` and
+    ``DTensor.from_local(local, *sharding)`` take it as it is."""
+    mesh: "DeviceMesh"
+    placements: tuple
+
+
+def placements(mesh: "DeviceMesh", spec: tuple) -> tuple:
+    """One placement per mesh dimension: ``Shard(d)`` where the mesh axis
+    appears in ``spec``'s entry for tensor dimension ``d``, ``Replicate()``
+    elsewhere.
+
+    A tuple entry shards its dimension over its axes major-first, as
+    ``NamedSharding`` does; DTensor splits a dimension sharded on several
+    mesh dimensions in mesh-dimension order, so the entry's axes must
+    come in mesh order (the reference's tables list them so), and an
+    axis may shard one dimension only.  Either fault raises
+    ``ValueError``."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = tuple(mesh.mesh_dim_names or ())
+    out: list = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        if any(a not in names for a in axes):
+            raise ValueError(f"spec {spec}: no mesh axis among {axes}; the "
+                             f"mesh has {names}")
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"spec {spec}: dimension {d} is sharded over "
+                             f"{axes}, not in the mesh's order {names}; "
+                             "DTensor would split it in another order")
+        for i in idx:
+            if isinstance(out[i], Shard):
+                raise ValueError(f"spec {spec}: mesh axis {names[i]!r} "
+                                 "shards two dimensions")
+            out[i] = Shard(d)
+    return tuple(out)
+
+
+def mesh_sizes(mesh: "DeviceMesh") -> dict[str, int]:
+    """Each mesh axis's size; an object that only names its axes (no
+    ``shape``) counts as one device on each."""
+    names = tuple(mesh.mesh_dim_names or ())
+    return dict(zip(names, getattr(mesh, "shape", (1,) * len(names))))
+
+
+def axes_size(mesh: "DeviceMesh", axes) -> int:
+    """The product of the sizes of ``axes`` (a name, a tuple of names or
+    ``None``: 1)."""
+    if axes is None:
+        return 1
+    sizes = mesh_sizes(mesh)
+    return math.prod(sizes[a] for a in
+                     (axes if isinstance(axes, tuple) else (axes,)))
+
+
+def local_shard(x: "torch.Tensor", sharding: Sharding) -> "torch.Tensor":
+    """This rank's block of the whole tensor ``x`` under ``sharding``:
+    what ``distribute_tensor(x, *sharding).to_local()`` holds, cut
+    without a collective.  A dimension that its axes' sizes do not
+    divide raises ``ValueError``, where ``NamedSharding`` refuses it
+    (DTensor would pad)."""
+    from torch.distributed.tensor import Shard
+
+    mesh, place = sharding
+    sizes = tuple(mesh_sizes(mesh).values())
+    for d in range(x.ndim):
+        n = math.prod(s for s, p in zip(sizes, place)
+                      if isinstance(p, Shard) and p.dim == d)
+        if x.shape[d] % n:
+            raise ValueError(f"dimension {d} of a {tuple(x.shape)} tensor "
+                             f"does not divide into {n} shards")
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(place):
+        if isinstance(p, Shard):
+            step = x.shape[p.dim] // sizes[i]
+            x = x.narrow(p.dim, coord[i] * step, step)
+    return x.contiguous()
+
+
+_GROUPS: dict = {}
+
+
+def axes_group(mesh: "DeviceMesh", axes):
+    """The process group over the product of ``axes`` (one name or a
+    tuple in mesh order), its ranks in the axes' row-major order: one
+    axis is ``mesh.get_group(axis)``; several get one group each over
+    their product, made once per mesh by every rank together (as
+    ``torch.distributed.new_group`` must be)."""
+    axes = axes if isinstance(axes, tuple) else (axes,)
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    key = (id(mesh), axes)
+    if key not in _GROUPS:
+        import torch.distributed as dist
+
+        names = tuple(mesh.mesh_dim_names)
+        dims = [names.index(a) for a in axes]
+        if dims != sorted(dims):
+            raise ValueError(f"axes {axes} are not in the mesh's order "
+                             f"{names}")
+        rest = [i for i in range(len(names)) if i not in dims]
+        rows = mesh.mesh.permute(*rest, *dims).reshape(
+            -1, axes_size(mesh, axes)).tolist()
+        me = dist.get_rank()
+        for ranks in rows:
+            if ranks != sorted(ranks):
+                raise ValueError(f"mesh ranks {ranks} along {axes} are not "
+                                 "ascending: a group orders its ranks so")
+            group = dist.new_group(ranks)
+            if me in ranks:
+                _GROUPS[key] = (mesh, group)
+    return _GROUPS[key][1]
+
+
+def spec_tree_to_shardings(rules: MeshRules, spec_tree):
+    """A tree (dicts and lists) of mesh-axis spec tuples -> the same tree
+    of :class:`Sharding`."""
+    if isinstance(spec_tree, dict):
+        return {k: spec_tree_to_shardings(rules, v)
+                for k, v in spec_tree.items()}
+    if isinstance(spec_tree, list):
+        return [spec_tree_to_shardings(rules, v) for v in spec_tree]
+    return rules.named(spec_tree)

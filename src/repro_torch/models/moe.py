@@ -3,11 +3,28 @@
 The counterpart of ``repro.models.moe``.  Tokens are sorted by expert,
 packed into ``C`` slots per expert with gathers (no O(T^2) one-hot
 dispatch), run through batched expert products, and combined back with
-their gates.  The reference's sharded bodies (``_token_body``,
-``_megatron_body``) gather the expert weights and reduce partials over
-the FSDP and TP axes; on one card those axes have size 1 and each body
-is ``_moe_math`` with ``reduce_axes=None``, so ``moe_ffn`` runs that
-math whether or not ``MeshRules`` are active.
+their gates.  Dispatch is shard-local: under active ``MeshRules`` whose
+mesh has an axis larger than 1, ``moe_ffn`` takes the reference's
+sharded paths by strategy, each rank holding its local tokens and
+weight blocks (``sharding.local_shard``):
+
+  token path (fsdp / fsdp_dp / tp_dp / tp_sp) — the rank's tokens; the
+      expert weights all-gathered over the ``fsdp_expert`` axes
+      (ZeRO-3); if TP is on, the expert-F partials summed once over
+      ``tp`` at the end.
+  megatron path (megatron_sp) — the residual stream sequence-sharded
+      over ``tp``: the sequence all-gathered once, every tp rank routing
+      the same tokens with its F-shard, the output reduce-scattered back
+      on the sequence.
+
+Each body computes ``C`` from the rank's own token count, as the
+reference does inside its ``shard_map``, and averages ``aux`` and
+``zloss`` over the fsdp group.  The collectives run through
+``torch.distributed`` on ``sharding.axes_group``; they carry no
+autograd, so the sharded bodies run forward only (training takes the
+unsharded math on each rank's local weights: ``distributed.
+compression``).  When every mesh axis has size 1, or no rules are
+active, ``moe_ffn`` is ``_moe_math`` on the whole input.
 
 Where the port has to choose, it chooses the reference's numbers:
 
@@ -34,10 +51,12 @@ Where the port has to choose, it chooses the reference's numbers:
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.models.layers import _param
 
 
@@ -137,10 +156,107 @@ def _moe_math(cfg: ArchConfig, x: torch.Tensor, router, w1, w3, w2,
     return out, aux, zloss
 
 
+# ---- sharded bodies -------------------------------------------------------
+
+
+def _all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The group's blocks of ``x`` concatenated on ``dim`` in group-rank
+    order (the reference's tiled ``all_gather``)."""
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def _group_mean(x: torch.Tensor, group) -> torch.Tensor:
+    x = x.clone()
+    dist.all_reduce(x, group=group)
+    return x / dist.get_world_size(group)
+
+
+def _gather_weights(fsdp_group, router, w1, w3, w2, shared):
+    """ZeRO-3: reassemble the expert weights' storage shards (the TP dim,
+    if any, stays sharded: it is contracted and summed over tp)."""
+    if fsdp_group is not None:
+        w1 = _all_gather(w1, 1, fsdp_group)
+        w3 = _all_gather(w3, 1, fsdp_group)
+        w2 = _all_gather(w2, 2, fsdp_group)
+        if shared:
+            sw1, sw3, sw2 = shared
+            shared = (_all_gather(sw1, 0, fsdp_group),
+                      _all_gather(sw3, 0, fsdp_group),
+                      _all_gather(sw2, 1, fsdp_group))
+    return router, w1, w3, w2, shared
+
+
+def _token_body(cfg, fsdp_group, tp_group, x, router, w1, w3, w2, shared):
+    """Per-rank MoE over the rank's tokens.  x: (T_local, D)."""
+    router, w1, w3, w2, shared = _gather_weights(fsdp_group, router, w1,
+                                                 w3, w2, shared)
+    out, aux, zloss = _moe_math(cfg, x, router, w1, w3, w2, shared)
+    if fsdp_group is not None:
+        aux, zloss = _group_mean(aux, fsdp_group), _group_mean(zloss,
+                                                               fsdp_group)
+    if tp_group is not None:   # TP partials, routed + shared, summed once
+        dist.all_reduce(out, group=tp_group)
+    return out, aux, zloss
+
+
+def _megatron_body(cfg, fsdp_group, tp_group, x, router, w1, w3, w2,
+                   shared):
+    """Sequence-sharded residual stream: one all-gather, one
+    reduce-scatter.  x: (B_local, S_local, D), S sharded over tp."""
+    B, _, D = x.shape
+    x_full = x if tp_group is None else _all_gather(x, 1, tp_group)
+    S = x_full.shape[1]
+    router, w1, w3, w2, shared = _gather_weights(fsdp_group, router, w1,
+                                                 w3, w2, shared)
+    out, aux, zloss = _moe_math(cfg, x_full.reshape(B * S, D), router,
+                                w1, w3, w2, shared)
+    if fsdp_group is not None:
+        aux, zloss = _group_mean(aux, fsdp_group), _group_mean(zloss,
+                                                               fsdp_group)
+    out = out.reshape(B, S, D)
+    if tp_group is not None:
+        n = dist.get_world_size(tp_group)
+        local = torch.empty_like(x)
+        dist.reduce_scatter(local, [c.contiguous()
+                                    for c in out.chunk(n, dim=1)],
+                            group=tp_group)
+        out = local
+    return out, aux, zloss
+
+
+def _group(rules, axes):
+    """The process group over ``axes``, or None where they span one
+    rank (the reference's collectives are then the identity)."""
+    if shd.axes_size(rules.mesh, axes) == 1:
+        return None
+    return shd.axes_group(rules.mesh, axes)
+
+
 def moe_ffn(cfg: ArchConfig, p, x: torch.Tensor):
-    """x: (B, S, D) -> (out (B, S, D) in x's dtype, aux + zloss)."""
+    """x: (B, S, D) -> (out (B, S, D) in x's dtype, aux + zloss).  Under
+    a mesh with an axis larger than 1, ``x`` and ``p`` are the rank's
+    local blocks and so is the output."""
     B, S, D = x.shape
-    shared = tuple(p[k] for k in ("sw1", "sw3", "sw2") if k in p)
-    out, aux, zloss = _moe_math(cfg, x.reshape(B * S, D), p["router"],
-                                p["w1"], p["w3"], p["w2"], shared or None)
+    shared = tuple(p[k] for k in ("sw1", "sw3", "sw2") if k in p) or None
+    weights = (p["router"], p["w1"], p["w3"], p["w2"], shared)
+    rules = shd.active_rules()
+    if rules is None or all(n == 1 for n in
+                            shd.mesh_sizes(rules.mesh).values()):
+        out, aux, zloss = _moe_math(cfg, x.reshape(B * S, D), *weights)
+        return out.reshape(B, S, D).to(x.dtype), aux + zloss
+
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, *weights[:4], *(shared or ()))):
+        raise NotImplementedError(
+            "the sharded MoE bodies run forward only: their collectives "
+            "carry no autograd")
+    t = rules.table
+    fsdp, tp = _group(rules, t["fsdp_expert"]), _group(rules, t["tp"])
+    if rules.strategy == "megatron_sp":
+        out, aux, zloss = _megatron_body(cfg, fsdp, tp, x, *weights)
+        return out.to(x.dtype), aux + zloss
+    out, aux, zloss = _token_body(cfg, fsdp, tp, x.reshape(B * S, D),
+                                  *weights)
     return out.reshape(B, S, D).to(x.dtype), aux + zloss

@@ -31,7 +31,9 @@ def test_import_pulls_in_no_jax_and_no_reference():
     assert {"repro_torch.core.store", "repro_torch.core.pushdown_torch",
             "repro_torch.kernels.ops", "repro_torch.kernels.filter_agg",
             "repro_torch.kernels.block_agg",
-            "repro_torch.distributed.sharding", "repro_torch.data.corpus",
+            "repro_torch.distributed.sharding",
+            "repro_torch.distributed.compression",
+            "repro_torch.launch.mesh", "repro_torch.data.corpus",
             "repro_torch.data.pipeline",
             "repro_torch.data.fused_ingest", "repro_torch.core.faults",
             "repro_torch.core.session", "repro_torch.core.skyhook",
