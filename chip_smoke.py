@@ -277,6 +277,22 @@ MD_HOST_NUMEL = 20_000_000
 MD_MOE_TOKENS = (4, 2048)
 MD_MEGATRON_TOL = 1e-5         # of the largest output: two F halves summed
 MD_DEADLINE_S = 600
+# FSDP on one card (phase 24): 2 gloo ranks on cuda:0, mesh (data 2,
+# model 1), strategy fsdp, each rank's block of every parameter and
+# moment, gathered at use; each rank's block of the batch from packed
+# ingest.  (a) yi_9b at full width with 1 layer in float32, 2 x 1024
+# tokens, 2 steps, against an unsharded run of the same seed and global
+# batch; (b) yi_9b at full width with 2 layers in bf16, 2 x 4096 tokens a
+# rank, 4 steps, timed; (c) deepseek_v2_lite_16b's dense layer and one MoE
+# layer at full width in float32, capacity n_routed / top_k, one step's
+# gradients against the single-card math on each rank's tokens
+FS_RANKS, FS_F32_LAYERS, FS_F32_STEPS, FS_F32_SEQ = 2, 1, 2, 1024
+FS_CORPUS_SEQS = 64                  # the loader's first 4 batches need 16
+FS_BF16_LAYERS, FS_BF16_STEPS = 2, 4
+FS_MOE_LAYERS, FS_MOE_SEQ = 2, 1024
+FS_TRAIN_TOL = {"rtol": 1e-5, "atol": 1e-4}    # tests/test_torch_fsdp.py
+FS_MOE_TOL = {"rtol": 1e-5, "atol": 1e-6}      # tests/test_torch_distributed.py
+FS_DEADLINE_S = 600
 SSM_INVARIANT_BF16 = (192, 64)
 SSM_F32_LAYERS = {"rwkv6_3b": 32, "zamba2_2p7b": 6}
 SSM_F32_WHOLE = (256, 256)
@@ -1469,7 +1485,7 @@ MOE_PATHS = ("moe serve", "moe train")
 SSM_PATHS = tuple(f"{a} {p}" for a in SSM_ARCHS
                   for p in ("serve", "train"))
 PATHS = PLANE_PATHS + TRAIN_PATHS + MOE_PATHS + SSM_PATHS + (
-    "multi-device",)
+    "multi-device", "fsdp")
 
 
 def table_planes(P, store, table: dict, seed: int, card: str) -> dict:
@@ -2702,6 +2718,340 @@ def multi_device_path(P, dev, seed: int, card: str) -> dict:
     return res
 
 
+def _fs_whole(P, model, tree: dict, rules) -> dict:
+    """Each leaf of ``tree`` (a rank's blocks, by parameter name) whole,
+    on the card (compared there: on the host the comparisons took most
+    of the phase)."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.train import steps
+
+    specs = steps.param_specs(model)
+    params = dict(model.named_parameters())
+    return {n: shd.gather_whole(t.detach(), shd.fitted(
+        rules, specs[n], params[n].fsdp_shape), rules)
+        for n, t in tree.items()}
+
+
+def _fs_close(got: dict, want: dict, tol: dict, outliers: float = 0.0,
+              bound: float = 0.0) -> dict:
+    """(max |err|, entries outside ``tol``, entries in all) of two trees;
+    ``ok`` when at most ``outliers`` of the entries leave ``tol``, each by
+    no more than ``bound``."""
+    worst, bad, n, ok = 0.0, 0, 0, True
+    for k, w in want.items():
+        g = got[k].float()
+        w = w.float()
+        off = ~torch.isclose(g, w, **tol)
+        err = (g - w).abs()
+        worst = max(worst, float(err.max()))
+        bad += int(off.sum())
+        n += w.numel()
+        if off.any() and float(err[off].max()) > bound:
+            ok = False
+    return {"max_abs_err": worst, "outside_tol": bad, "entries": n,
+            "ok": ok and bad <= outliers * n}
+
+
+def _fs_batches(P, vol, rank: int, seed: int, steps: int) -> list:
+    """This rank's packed words of the first ``steps`` global batches
+    (``TRAIN_BATCH`` sequences, each rank its half)."""
+    from repro_torch.train.trainer import _on_device
+
+    loader = P.pipeline.ObjectDataLoader(
+        vol, "corpus", global_batch=TRAIN_BATCH, dp_rank=rank,
+        dp_size=FS_RANKS, seed=seed, packed=True, prefetch=2)
+    try:
+        return [_on_device(next(loader), DEVICE)["tokens_packed"]
+                for _ in range(steps)]
+    finally:
+        loader.close()
+
+
+def _fs_f32(P, rules, words: list, seed: int) -> dict:
+    """(a): yi_9b, ``FS_F32_LAYERS`` layer at full width in float32,
+    ``FS_F32_STEPS`` steps on each rank's first sequence cut to
+    ``FS_F32_SEQ`` tokens, against the unsharded step on both ranks'
+    tokens (rank 0)."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.train import steps
+
+    dev = torch.device(DEVICE)
+    cfg = dataclasses.replace(P.configs.get_config(TRAIN_ARCH),
+                              n_layers=FS_F32_LAYERS,
+                              param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    opt = P.optimizer.OptConfig(lr=TRAIN_LR, warmup_steps=2,
+                                total_steps=FS_F32_STEPS)
+    model = P.archs.build_model(cfg, remat="full", device=dev)
+    state = steps.init_train_state(
+        model, torch.Generator(device=dev).manual_seed(seed))
+    state = steps.shard_train_state(model, state, rules)
+    step = steps.make_train_step(model, opt)
+    group = rules.mesh.get_group("data")
+    tokens, losses = [], []
+    with shd.use_rules(rules):
+        for w in words[:FS_F32_STEPS]:
+            batch = P.ingest.fused_batch(w[:1, :FS_F32_SEQ // 32])
+            tokens.append(shd.all_gather_dim(batch["tokens"], 0, group))
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+        got = {"params": _fs_whole(P, model, state["params"], rules),
+               "m": _fs_whole(P, model, state["opt"]["m"], rules),
+               "v": _fs_whole(P, model, state["opt"]["v"], rules)}
+    del model, state, step
+    _free_card()
+    res = {"losses": losses, "tokens": list(tokens[0].shape)}
+    if dist.get_rank() == 0:
+        model = P.archs.build_model(cfg, remat="full", device=dev)
+        state = steps.init_train_state(
+            model, torch.Generator(device=dev).manual_seed(seed))
+        step = steps.make_train_step(model, opt)
+        want_losses = []
+        for t in tokens:
+            state, m = step(state, {"tokens": t,
+                                    "labels": P.ingest.derive_labels(t)})
+            want_losses.append(float(m["loss"]))
+        moved = 2 * TRAIN_LR * FS_F32_STEPS
+        res.update(
+            unsharded_losses=want_losses,
+            params=_fs_close(got["params"], {n: p.detach() for n, p in
+                                             state["params"].items()},
+                             FS_TRAIN_TOL, 1e-3, moved),
+            m=_fs_close(got["m"], state["opt"]["m"], FS_TRAIN_TOL),
+            v=_fs_close(got["v"], state["opt"]["v"], FS_TRAIN_TOL))
+        del model, state, step
+    del got
+    _free_card()
+    return res
+
+
+def _fs_bf16(P, rules, words: list, seed: int) -> dict:
+    """(b): yi_9b, ``FS_BF16_LAYERS`` layers at full width in bf16,
+    ``FS_BF16_STEPS`` timed steps of each rank's two 4096-token
+    sequences, with the collective bytes of each step."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.train import steps
+
+    dev = torch.device(DEVICE)
+    cfg = dataclasses.replace(P.configs.get_config(TRAIN_ARCH),
+                              n_layers=FS_BF16_LAYERS)
+    opt = P.optimizer.OptConfig(lr=TRAIN_LR, warmup_steps=2,
+                                total_steps=FS_BF16_STEPS)
+    model = P.archs.build_model(cfg, remat="full", device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    state = steps.init_train_state(
+        model, torch.Generator(device=dev).manual_seed(seed))
+    state = steps.shard_train_state(model, state, rules)
+    local = sum(p.numel() for p in model.parameters())
+    step = steps.make_train_step(model, opt)
+    _free_card()
+    torch.distributed.barrier()          # rank 0 ran (a)'s unsharded step
+    walls, losses, moved = [], [], []
+    _zero_counts(P)                      # the path's run starts here
+    with shd.use_rules(rules):
+        for w in words[:FS_BF16_STEPS]:
+            _sync(dev)
+            shd.reset_collective_bytes()
+            t = time.perf_counter()
+            state, m = step(state, P.ingest.fused_batch(w))
+            losses.append(float(m["loss"]))          # syncs
+            walls.append(time.perf_counter() - t)
+            moved.append(dict(shd.COLLECTIVE_BYTES))
+    launches = _counts(P)                # ... and ends here
+    peak = torch.cuda.max_memory_allocated(dev)
+    del model, state, step
+    _free_card()
+    return {"params": n_params, "local_params": local, "step_s": walls,
+            "losses": losses, "bytes": moved, "peak_mem_GB": peak / 1e9,
+            "launches": launches}
+
+
+def _fs_moe(P, rules, words: list, seed: int) -> dict:
+    """(c): deepseek_v2_lite_16b's dense layer and one MoE layer at full
+    width in float32, capacity n_routed / top_k: one step's gradients
+    under FSDP, gathered, against the single-card gradients of each
+    rank's tokens with the whole weights, averaged (rank 0)."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.train import steps
+
+    dev = torch.device(DEVICE)
+    base = P.configs.get_config(MOE_ARCH)
+    cfg = dataclasses.replace(
+        base, n_layers=FS_MOE_LAYERS, param_dtype=torch.float32,
+        compute_dtype=torch.float32, moe=dataclasses.replace(
+            base.moe, capacity_factor=base.moe.n_routed / base.moe.top_k))
+    model = P.archs.build_model(cfg, remat="full", device=dev)
+    state = steps.init_train_state(
+        model, torch.Generator(device=dev).manual_seed(seed))
+    state = steps.shard_train_state(model, state, rules)
+    batch = P.ingest.fused_batch(words[0][:1, :FS_MOE_SEQ // 32])
+    tokens = shd.all_gather_dim(batch["tokens"], 0,
+                                rules.mesh.get_group("data"))
+    params = state["params"]
+    _sync(dev)
+    t = time.perf_counter()
+    with shd.use_rules(rules):
+        loss, metrics = model.loss(batch)
+        grads = torch.autograd.grad(loss, list(params.values()))
+    _sync(dev)
+    res = {"fsdp_s": time.perf_counter() - t, "tokens": list(tokens.shape),
+           "aux_loss": float(metrics["aux_loss"]),
+           "loss": float(metrics["loss"])}
+    with shd.use_rules(rules):
+        got = _fs_whole(P, model, dict(zip(params, grads)), rules)
+    del model, state, grads, params
+    _free_card()
+    if dist.get_rank() == 0:
+        model = P.archs.build_model(cfg, remat="full", device=dev)
+        model.init(torch.Generator(device=dev).manual_seed(seed))
+        params = dict(model.named_parameters())
+        want = {n: torch.zeros_like(p) for n, p in params.items()}
+        _sync(dev)
+        t = time.perf_counter()
+        for row in tokens:
+            t1 = row[None]
+            loss, _ = model.loss({"tokens": t1,
+                                  "labels": P.ingest.derive_labels(t1)})
+            for n, g in zip(params, torch.autograd.grad(
+                    loss, list(params.values()))):
+                want[n] += g / FS_RANKS
+        _sync(dev)
+        res["single_card_s"] = time.perf_counter() - t
+        res["grads"] = _fs_close(got, want, FS_MOE_TOL)
+        del model, params
+    del got
+    _free_card()
+    return res
+
+
+def _fs_rank(rank: int, world: int, init: str, tmp: str, seed: int) -> None:
+    import torch.distributed as dist
+    P = _load_port()
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=world)
+    try:
+        from repro_torch.distributed import sharding as shd
+        from repro_torch.launch import mesh as lmesh
+
+        mesh = lmesh.make_smoke_mesh((FS_RANKS, 1), ("data", "model"))
+        rules = shd.MeshRules(mesh, strategy="fsdp")
+        store = P.core.make_store(8, replicas=2)
+        try:
+            vol = P.core.GlobalVOL(store)
+            P.corpus.build_corpus(vol, P.corpus.CorpusSpec(
+                n_seqs=FS_CORPUS_SEQS, seq_len=TRAIN_SEQ,
+                vocab_size=P.configs.get_config(TRAIN_ARCH).vocab_size,
+                seed=seed), chunk_rows=FS_CORPUS_SEQS)
+            words = _fs_batches(P, vol, rank, seed, FS_BF16_STEPS)
+        finally:
+            store.close()
+        walls = {}
+        t = time.perf_counter()
+        _zero_counts(P)
+        res = {"f32": _fs_f32(P, rules, words, seed)}
+        res["f32"]["launches"] = _counts(P)
+        walls["a_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        res["bf16"] = _fs_bf16(P, rules, words, seed)
+        walls["b_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        _zero_counts(P)
+        res["moe"] = _fs_moe(P, rules, words, seed)
+        res["moe"]["launches"] = _counts(P)
+        walls["c_s"] = time.perf_counter() - t
+        res["walls"] = walls
+        (Path(tmp) / f"rank{rank}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def fsdp_path(P, dev, seed: int, card: str) -> dict:
+    """Phase 24: ``FS_RANKS`` gloo ranks on this one card run the train
+    step with its state sharded ZeRO-3 style (``train.steps.
+    shard_train_state`` under ``MeshRules(strategy="fsdp")``)."""
+    _free_card()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        tmp = Path(d)
+        ctx = torch.multiprocessing.spawn(
+            _fs_rank, args=(FS_RANKS, f"file://{tmp}/pg", str(tmp), seed),
+            nprocs=FS_RANKS, join=False)
+        deadline = time.monotonic() + FS_DEADLINE_S
+        try:
+            while not ctx.join(timeout=1.0):
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"fsdp: a rank did not finish in "
+                                         f"{FS_DEADLINE_S} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+        ranks = [json.loads((tmp / f"rank{r}.json").read_text())
+                 for r in range(FS_RANKS)]
+    wall = time.perf_counter() - t0
+    a = ranks[0]["f32"]
+    b = [r["bf16"] for r in ranks]
+    c = ranks[0]["moe"]
+    per_step = [{k: v for k, v in x.items() if v} for x in b[0]["bytes"]]
+    launches = {k: sum(x["launches"][k] for x in b) for k in KERNELS}
+    res = {"ranks": FS_RANKS, "wall_s": wall, "f32": a, "bf16": b,
+           "moe": c, "launches": launches}
+    print("fsdp: " + json.dumps(res), flush=True)
+    print(f"fsdp (a): {TRAIN_ARCH} {FS_F32_LAYERS} layer in float32 under "
+          f"fsdp on (data {FS_RANKS}, model 1), {FS_F32_STEPS} steps of "
+          f"{a['tokens']} tokens: losses {a['losses']} against unsharded "
+          f"{a['unsharded_losses']}; gathered params {a['params']}, m "
+          f"{a['m']}, v {a['v']}  [{card}]", flush=True)
+    print(f"fsdp (b): {TRAIN_ARCH} {FS_BF16_LAYERS} layers "
+          f"({b[0]['params']} params, {b[0]['local_params']} a rank) in "
+          f"bf16, {FS_BF16_STEPS} packed-ingest steps of {FS_RANKS} x "
+          f"{TRAIN_BATCH // FS_RANKS} x {TRAIN_SEQ} tokens: losses rank 0 "
+          f"{[round(x, 4) for x in b[0]['losses']]}, rank 1 "
+          f"{[round(x, 4) for x in b[1]['losses']]}; step walls (s) rank 0 "
+          f"{[round(x, 4) for x in b[0]['step_s']]}, rank 1 "
+          f"{[round(x, 4) for x in b[1]['step_s']]}; wire bytes a rank a "
+          f"step {per_step}; peak memory "
+          f"{[round(x['peak_mem_GB'], 3) for x in b]} GB; bitunpack "
+          f"launches {[x['launches']['bitunpack'] for x in b]}  [{card}]",
+          flush=True)
+    print(f"fsdp (c): {MOE_ARCH} dense + MoE layer in float32 at capacity "
+          f"n_routed / top_k, {c['tokens']} tokens, one step's gathered "
+          f"gradients against the single-card math on each rank's tokens: "
+          f"{c['grads']}; aux_loss {c['aux_loss']!r}; fsdp "
+          f"{c['fsdp_s']:.3f} s, single card (both halves) "
+          f"{c['single_card_s']:.3f} s; parts (s) "
+          f"{ {k: round(v, 1) for k, v in ranks[0]['walls'].items()} }, "
+          f"phase {wall:.1f} s  [{card}]", flush=True)
+    print(f"reduced: fsdp at {FS_F32_LAYERS} and {FS_BF16_LAYERS} of "
+          f"{TRAIN_ARCH}'s 48 layers and {FS_MOE_LAYERS} of {MOE_ARCH}'s "
+          f"27, 2 ranks sharing one card (the production mesh is (16, 16))")
+    for name, r in (("params", a["params"]), ("m", a["m"]), ("v", a["v"]),
+                    ("moe grads", c["grads"])):
+        if not r["ok"]:
+            raise AssertionError(f"fsdp: {name} {r}")
+    if launches != {"bitunpack": FS_RANKS * FS_BF16_STEPS, "filter_agg": 0,
+                    "block_agg": 0}:
+        raise AssertionError(f"fsdp launches {launches}")
+    for x in b:
+        if not all(np.isfinite(x["losses"])) or \
+                not x["losses"][-1] < x["losses"][0]:
+            raise AssertionError(f"fsdp: losses {x['losses']}")
+    if b[0]["losses"] != b[1]["losses"]:
+        raise AssertionError(f"fsdp: ranks report different losses "
+                             f"{[x['losses'] for x in b]}")
+    if not c["aux_loss"] > 0 or not all(
+            x["launches"]["bitunpack"] == FS_F32_STEPS
+            for x in (r["f32"] for r in ranks)):
+        raise AssertionError(f"fsdp: aux {c['aux_loss']}, launches "
+                             f"{[r['f32']['launches'] for r in ranks]}")
+    return res
+
+
 # --------------------------------------------------------------------------
 
 
@@ -2868,6 +3218,8 @@ def main(argv=None) -> int:
     lap("recurrent families")
     planes["multi-device"] = multi_device_path(P, dev, args.seed, card)
     lap("multi-device on one card")
+    planes["fsdp"] = fsdp_path(P, dev, args.seed, card)
+    lap("FSDP on one card")
 
     scans = {"scan": res["launches"],
              "packed ingest": ing["launches"]["bitunpack"],

@@ -21,10 +21,21 @@ reference, ``q`` is widened to int32 before its sum (exact for up to
 2**24 pods), so the hop carries 4 bytes an element plus one float32
 scale a tensor, and the sum is decoded with the mean scale:
 ``tot * (s_tot / n) / n``.
+
+The compressed train step takes a replicated state or an FSDP one
+(``train.steps.shard_train_state`` under ``fsdp_dp``, the reference's
+compressed cells of the ssm and hybrid families).  In the reference the
+step is manual over "pod" only and GSPMD shards (data, model) inside
+each pod, so a pod's gradient leaf is one array: its scale is the max
+over the whole pod-local leaf.  The FSDP step therefore runs the model
+under rules manual over "pod" on each parameter's pod-local block,
+which reduce-scatters the pod-local gradient over the pod's other axes;
+each scale's max is all-reduced over them before ``_scale``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import torch
@@ -82,16 +93,6 @@ def init_error_state(grads: Any) -> Any:
                                     device=g.device), grads)
 
 
-def _tree_map(fn, tree):
-    """``fn`` over the leaves of a tree of dicts and lists (a spec tuple
-    is a leaf)."""
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_tree_map(fn, v) for v in tree]
-    return fn(tree)
-
-
 # --------------------------------------------------------------------------
 # the pod hop
 # --------------------------------------------------------------------------
@@ -103,7 +104,7 @@ def _pod_group(rules: shd.MeshRules):
     return rules.mesh.get_group("pod"), shd.axes_size(rules.mesh, "pod")
 
 
-def _pod_leaf(gs: list, errs: list, group, n: int):
+def _pod_leaf(gs: list, errs: list, group, n: int, amax_group=None):
     """The pod hop of one reference leaf, held as the tensors ``gs``
     (with their errors ``errs``) that share its one scale: a layer-
     stacked leaf is one tensor there and one tensor a layer here; the
@@ -111,9 +112,13 @@ def _pod_leaf(gs: list, errs: list, group, n: int):
     first, then each tensor's q as int32 and decoded with the mean scale
     ``tot * (s_tot / n) / n``: the reference's arithmetic, with one
     tensor's sum alive at a time.  Returns (decoded gradients in each
-    ``g``'s dtype, new errors, int32 sums, scale sum)."""
+    ``g``'s dtype, new errors, int32 sums, scale sum).  The tensors may
+    be this rank's blocks of the leaf, the rest of it on the ranks of
+    ``amax_group``, over which the max is then taken."""
     amax = torch.stack([(g.to(torch.float32) + e).abs().max()
                         for g, e in zip(gs, errs)]).max()
+    if amax_group is not None:
+        shd.all_reduce_(amax, amax_group, dist.ReduceOp.MAX)
     s = _scale(amax)
     s_tot = s.clone()
     dist.all_reduce(s_tot, group=group)
@@ -134,11 +139,13 @@ def _pod_leaf(gs: list, errs: list, group, n: int):
 
 
 def _pod_allreduce(grads: Any, err_state: Any, rules: shd.MeshRules,
-                   keep_sums: bool = False, leaf_of=None):
+                   keep_sums: bool = False, leaf_of=None, amax_group=None):
     """(gradients, new errors, and, when ``keep_sums``, a tree like
     ``grads`` of each tensor's (int32 sum, scale sum), else None).
     ``leaf_of(key)`` names the reference leaf a tensor belongs to;
-    tensors of one leaf share a scale (default: each its own)."""
+    tensors of one leaf share a scale (default: each its own).  With
+    ``amax_group`` each tensor is a block of a leaf whose other blocks
+    lie on that group's ranks (``_pod_leaf``)."""
     group, n = _pod_group(rules)
     errs = dict(pytree.flatten_with_keys(err_state))
     leaves: dict = {}
@@ -149,7 +156,8 @@ def _pod_allreduce(grads: Any, err_state: Any, rules: shd.MeshRules,
     for members in leaves.values():
         keys = [k for k, _ in members]
         g_out, e_new, tots, s_tot = _pod_leaf(
-            [g for _, g in members], [errs[k] for k in keys], group, n)
+            [g for _, g in members], [errs[k] for k in keys], group, n,
+            amax_group)
         for k, go, en, tot in zip(keys, g_out, e_new, tots):
             out[k] = (go, en)
             if keep_sums:
@@ -180,7 +188,7 @@ def make_compressed_grad_sync(rules: shd.MeshRules, logical_specs):
     block, so the specs are only resolved (an unknown axis raises)."""
     if "pod" not in rules.all_axes:
         return lambda g, e: (g, e)
-    _tree_map(lambda s: rules.spec(*s), logical_specs)
+    shd.spec_map(lambda s: rules.spec(*s), logical_specs)
 
     def sync(grads, err):
         return compressed_pod_allreduce(grads, err, rules)
@@ -198,23 +206,36 @@ def make_compressed_train_step(model, opt_cfg, rules: shd.MeshRules):
     metrics)`` with the pod hop in int8 and error feedback; the state
     (``init_compressed_state``) is updated in place and returned.
 
-    Each rank takes the gradient of its local batch's loss (the model
-    runs with no active rules: it sees local, replicated weights); with
-    a data axis larger than 1 the gradients are averaged in float32 over
-    the data group, the reduction the reference keeps in float32 inside
-    a pod; then the pod hop, then AdamW as ``train.steps`` applies it.
-    ``loss`` and the model's metrics are averaged over the data and pod
-    groups (``tokens``, a count, is summed over data), as the
-    reference's pod-local loss and its ``pmean`` over "pod" give them.
+    With a replicated state, each rank takes the gradient of its local
+    batch's loss (the model runs with no active rules: it sees local,
+    replicated weights); with a data axis larger than 1 the gradients
+    are averaged in float32 over the data group, the reduction the
+    reference keeps in float32 inside a pod; then the pod hop, then
+    AdamW as ``train.steps`` applies it.  ``loss`` and the model's
+    metrics are averaged over the data and pod groups (``tokens``, a
+    count, is summed over data), as the reference's pod-local loss and
+    its ``pmean`` over "pod" give them.
+
+    With an FSDP state (``train.steps.shard_train_state``) each
+    parameter's block is first re-cut to its pod-local block (its spec
+    under rules manual over "pod"); the model runs under those rules,
+    each rank's objective its share of the pod's loss, so the gathers'
+    backward leaves each rank its block of the pod-local gradient; the
+    pod hop runs on those blocks and the errors (the reference's
+    ``P("pod", *fsdp_nopod)`` error state), each scale's max all-reduced
+    over the pod's other axes; the decoded blocks are re-cut to the
+    state's blocks and AdamW updates them under ``rules``.  The
+    metrics are the pods' mean.
+
     Each parameter is quantized with the scale of the reference's leaf
     it lies in (its layers' stack).  ``observe(grads, err, synced,
     sums)``, if given, sees one step's local gradients, errors, synced
     gradients and each tensor's (int32 sum, scale sum) before the
     update.
 
-    A model axis larger than 1 needs tensor-parallel layers, which the
-    port's models do not have: that raises ``ValueError``, as does a
-    mesh without a pod axis."""
+    A strategy whose ``tp`` lands on a model axis larger than 1 needs
+    tensor-parallel layers, which the port's models do not have: that
+    raises ``ValueError``, as does a mesh without a pod axis."""
     from repro_torch.models.transformer import reference_path
     from repro_torch.train.optimizer import adamw_update
     from repro_torch.train.steps import reference_decay
@@ -223,10 +244,10 @@ def make_compressed_train_step(model, opt_cfg, rules: shd.MeshRules):
     sizes = shd.mesh_sizes(mesh)
     if "pod" not in sizes:
         raise ValueError(f"the mesh {rules.all_axes} has no 'pod' axis")
-    if sizes.get("model", 1) > 1:
-        raise ValueError(f"model axis of {sizes['model']}: the compressed "
-                         "train step needs tensor-parallel layers there, "
-                         "which the port's models do not have")
+    if shd.axes_size(mesh, rules.table["tp"]) > 1:
+        raise ValueError(f"model axis of {sizes['model']}: strategy "
+                         f"{rules.strategy!r} needs tensor-parallel layers "
+                         "there, which the port's models do not have")
     n_data, n_pod = sizes.get("data", 1), sizes["pod"]
     data = mesh.get_group("data") if n_data > 1 else None
     pod = mesh.get_group("pod")
@@ -237,8 +258,12 @@ def make_compressed_train_step(model, opt_cfg, rules: shd.MeshRules):
     def leaf_of(key: str):
         return reference_path(names[key])[0]
 
+    fsdp_step = _fsdp_compressed_step(model, opt_cfg, rules, leaf_of)
+
     def train_step(state: dict, batch: dict, observe=None):
         params = state["params"]
+        if shd.is_sharded(next(iter(params.values()))):
+            return fsdp_step(state, batch, observe)
         with shd.use_rules(None):
             loss, metrics = model.loss(batch)
         grads = dict(zip(params, torch.autograd.grad(
@@ -279,11 +304,90 @@ def make_compressed_train_step(model, opt_cfg, rules: shd.MeshRules):
     return train_step
 
 
-def init_compressed_state(state: dict) -> dict:
-    """``state`` with ``err``: this rank's (1, *shape) float32 block of
-    the reference's (n_pods, *shape) ``P("pod")`` error state, zeros,
-    one per parameter."""
-    err = {name: torch.zeros((1, *p.shape), dtype=torch.float32,
+def _pod_local(rules: shd.MeshRules) -> shd.MeshRules:
+    """The rules of a pod's own step: "pod" held manual."""
+    return dataclasses.replace(rules, manual_axes=("pod",))
+
+
+def _fsdp_compressed_step(model, opt_cfg, rules: shd.MeshRules, leaf_of):
+    from repro_torch.train.optimizer import adamw_update
+    from repro_torch.train.steps import reference_decay
+
+    inner = _pod_local(rules)
+    in_pod = shd.active_axes(inner)
+    pod = rules.mesh.get_group("pod")
+    n_pod = shd.axes_size(rules.mesh, "pod")
+
+    def recut(t, p, src, dst):
+        return shd.reshard(t, p.fsdp_spec, p.fsdp_shape, src, dst)
+
+    def train_step(state: dict, batch: dict, observe=None):
+        params = state["params"]
+        amax_group = shd.axes_group(rules.mesh, in_pod) if in_pod else None
+        blocks = {n: p.data for n, p in params.items()}
+        with torch.no_grad():
+            pod_blocks = {n: recut(p.data, p, rules, inner)
+                          for n, p in params.items()}
+        try:
+            for n, p in params.items():
+                p.data = pod_blocks[n]
+            del pod_blocks
+            with shd.use_rules(inner):
+                loss, metrics = model.loss(batch)
+                grads = dict(zip(params, torch.autograd.grad(
+                    loss, list(params.values()))))
+        finally:
+            for n, p in params.items():
+                p.data = blocks[n]
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        err = {name: e[0] for name, e in state["err"].items()}
+        synced, new_err, sums = _pod_allreduce(
+            grads, err, rules, keep_sums=observe is not None,
+            leaf_of=leaf_of, amax_group=amax_group)
+        if observe is not None:
+            observe(grads, err, synced, sums)
+        del grads, sums
+        with torch.no_grad():
+            synced = {n: recut(g, params[n], inner, rules)
+                      for n, g in synced.items()}
+        with shd.use_rules(rules):
+            _, opt, gnorm = adamw_update(opt_cfg, synced, params,
+                                         state["opt"],
+                                         decay=reference_decay(params))
+        del synced
+        with torch.no_grad():
+            for name, e in err.items():
+                e.copy_(new_err[name])
+
+        names = sorted(metrics)
+        vec = torch.stack([metrics[k].to(torch.float32).reshape(())
+                           for k in names])
+        shd.all_reduce_(vec, pod)
+        vec = vec / n_pod
+        out = {k: vec[i].to(metrics[k].dtype) for i, k in enumerate(names)}
+        out.update({"grad_norm": gnorm, "step": opt["step"].clone()})
+        return state, out
+
+    return train_step
+
+
+def init_compressed_state(state: dict, rules: shd.MeshRules | None = None
+                          ) -> dict:
+    """``state`` with ``err``: this rank's (1, *block) float32 block of
+    the reference's (n_pods, *shape) ``P("pod", *fsdp_nopod)`` error
+    state, zeros, one per parameter: the whole parameter's shape for a
+    replicated state, its pod-local block for an FSDP one (whose
+    ``rules`` must be given)."""
+    def block(p):
+        if not shd.is_sharded(p):
+            return tuple(p.shape)
+        if rules is None:
+            raise ValueError("an FSDP state's error blocks need its rules")
+        inner = _pod_local(rules)
+        return shd.block_shape(
+            shd.param_layout(inner, p.fsdp_spec, p.fsdp_shape), rules.mesh)
+
+    err = {name: torch.zeros((1, *block(p)), dtype=torch.float32,
                              device=p.device)
            for name, p in state["params"].items()}
     return dict(state, err=err)
@@ -304,8 +408,8 @@ def abstract_compressed_state(state_shapes: dict, state_specs: dict,
             return entry + "_nopod"
         return entry
 
-    err_shapes = _tree_map(meta, state_shapes["params"])
-    err_specs = _tree_map(lambda s: ("pod", *[depod(e) for e in s]),
+    err_shapes = shd.spec_map(meta, state_shapes["params"])
+    err_specs = shd.spec_map(lambda s: ("pod", *[depod(e) for e in s]),
                           state_specs["params"])
     return (dict(state_shapes, err=err_shapes),
             dict(state_specs, err=err_specs))

@@ -29,6 +29,26 @@ tuple of axes) through ``torch.distributed``: the device pushdown
 (``core.pushdown_torch``), the sharded MoE bodies (``models.moe``) and
 the int8 pod hop (``distributed.compression``).  The models see local
 tensors, never global ones, so ``hint`` places nothing.
+
+FSDP execution (ZeRO-3).  :func:`fit_spec` and :func:`resolve_tree` are
+the reference's ``_fit_spec`` and ``resolve_tree`` (``launch/dryrun.py``):
+a dimension keeps the leading axes of its spec entry that divide it.
+``train.steps.shard_train_state`` cuts each parameter and moment to this
+rank's block of that fitted spec and marks the parameter with its
+logical spec and whole shape (``mark_sharded``).  Inside the models,
+:func:`gathered` swaps a module's marked parameters for their whole
+tensors for the length of a block, each through :class:`GatherParam`:
+forward, a tiled all-gather of the block on its sharded dimension over
+``axes_group(mesh, axes)``; backward, the gradient reduce-scattered back
+to the block and all-reduced over the other active axes, so every
+parameter's gradient is summed over every rank whose rules are not
+manual.  The models normalise each rank's objective so that the ranks'
+objectives add up to the reference's one loss (``models.layers.
+sharded_objective``); that sum is then the gradient.  Only the storage
+axes ``fsdp`` and ``fsdp_expert`` may shard a parameter: a ``tp`` (or
+any other) entry over an axis larger than 1 raises, the model axis
+being another part of the port.  :data:`COLLECTIVE_BYTES` counts the
+wire bytes of the collectives this module runs.
 """
 
 from __future__ import annotations
@@ -39,8 +59,9 @@ import dataclasses
 import math
 from typing import TYPE_CHECKING, Any, NamedTuple
 
+import torch
+
 if TYPE_CHECKING:
-    import torch
     from torch.distributed.device_mesh import DeviceMesh
 
 _ACTIVE: contextvars.ContextVar["MeshRules | None"] = contextvars.ContextVar(
@@ -307,9 +328,346 @@ def axes_group(mesh: "DeviceMesh", axes):
 def spec_tree_to_shardings(rules: MeshRules, spec_tree):
     """A tree (dicts and lists) of mesh-axis spec tuples -> the same tree
     of :class:`Sharding`."""
-    if isinstance(spec_tree, dict):
-        return {k: spec_tree_to_shardings(rules, v)
-                for k, v in spec_tree.items()}
-    if isinstance(spec_tree, list):
-        return [spec_tree_to_shardings(rules, v) for v in spec_tree]
-    return rules.named(spec_tree)
+    return spec_map(rules.named, spec_tree)
+
+
+# --------------------------------------------------------------------------
+# fitted specs and sharded trees
+# --------------------------------------------------------------------------
+
+
+def _axes(entry) -> tuple:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def _entry(axes: tuple):
+    return axes if len(axes) > 1 else (axes[0] if axes else None)
+
+
+def fit_spec(rules: MeshRules, spec: tuple, shape) -> tuple:
+    """``spec`` (mesh axes per dimension) with each dimension's trailing
+    axes dropped from the first one whose size, times those before it,
+    does not divide the dimension (zamba's 32000 vocabulary over 512-way
+    FSDP keeps 32 ways): the reference's ``_fit_spec``."""
+    sizes = mesh_sizes(rules.mesh)
+    out = []
+    for d, entry in enumerate(tuple(spec)):
+        if entry is None or d >= len(shape):
+            out.append(entry)
+            continue
+        keep, prod = [], 1
+        for a in _axes(entry):
+            if shape[d] % (prod * sizes[a]):
+                break
+            keep.append(a)
+            prod *= sizes[a]
+        out.append(_entry(tuple(keep)))
+    return tuple(out)
+
+
+def _tree_map2(fn, a, b):
+    """``fn`` over the leaves of two trees of dicts and lists shaped
+    alike (a spec tuple is a leaf)."""
+    if isinstance(a, dict):
+        return {k: _tree_map2(fn, v, b[k]) for k, v in a.items()}
+    if isinstance(a, list):
+        return [_tree_map2(fn, v, w) for v, w in zip(a, b)]
+    return fn(a, b)
+
+
+def spec_map(fn, tree):
+    """``fn`` over the leaves of a tree of dicts and lists (a spec tuple
+    is a leaf)."""
+    if isinstance(tree, dict):
+        return {k: spec_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [spec_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def fitted(rules: MeshRules, logical: tuple, shape) -> tuple:
+    """The mesh axes of each dimension of a ``shape`` leaf whose logical
+    spec is ``logical``, fitted (:func:`fit_spec`)."""
+    return fit_spec(rules, rules.spec(*logical), shape)
+
+
+def resolve_tree(rules: MeshRules, spec_tree, shapes_tree=None):
+    """A tree of logical specs -> the same tree of :class:`Sharding`,
+    each fitted to its leaf of ``shapes_tree`` when that is given: the
+    reference's ``resolve_tree``."""
+    if shapes_tree is None:
+        return spec_map(lambda s: rules.named(rules.spec(*s)), spec_tree)
+    return _tree_map2(lambda s, x: rules.named(fitted(rules, s, x.shape)),
+                      spec_tree, shapes_tree)
+
+
+def shard_tree(tree, spec_tree, rules: MeshRules):
+    """This rank's block of each whole leaf of ``tree`` (dicts and lists
+    of tensors) under its logical spec in ``spec_tree``, fitted to the
+    leaf: fresh tensors, so the whole leaves can be freed."""
+    return _tree_map2(
+        lambda x, s: local_shard(x, rules.named(fitted(rules, s, x.shape))
+                                 ).clone(), tree, spec_tree)
+
+
+def gather_tree(tree, spec_tree, shapes_tree, rules: MeshRules):
+    """The inverse of :func:`shard_tree`: each whole leaf (its shape in
+    ``shapes_tree``, meta tensors will do) reassembled on every rank from
+    the ranks' blocks in ``tree``, by one all-gather per sharding mesh
+    axis, the minor axis first."""
+    def whole(x, pair):
+        s, shape = pair
+        return gather_whole(x, fitted(rules, s, shape.shape), rules)
+    return _tree_map2(whole, tree, _tree_map2(lambda s, x: (s, x),
+                                              spec_tree, shapes_tree))
+
+
+def gather_whole(x: torch.Tensor, spec: tuple, rules: MeshRules
+                 ) -> torch.Tensor:
+    """The whole tensor of which ``x`` is this rank's block under the
+    fitted mesh-axis ``spec``; no autograd."""
+    names = rules.all_axes
+    dims = {a: d for d, e in enumerate(spec) for a in _axes(e)}
+    for a in sorted(dims, key=names.index, reverse=True):
+        if mesh_sizes(rules.mesh)[a] > 1:
+            x = all_gather_dim(x, dims[a], rules.mesh.get_group(a))
+    return x
+
+
+def reshard(x: torch.Tensor, logical: tuple, shape, src: MeshRules,
+            dst: MeshRules) -> torch.Tensor:
+    """This rank's block under ``dst`` of the whole ``shape`` tensor whose
+    block under ``src`` is ``x`` (the whole tensor gathered, then cut)."""
+    whole = gather_whole(x, fitted(src, logical, shape), src)
+    return local_shard(whole, dst.named(fitted(dst, logical, shape))
+                       ).clone()
+
+
+# --------------------------------------------------------------------------
+# collectives, with their wire bytes counted
+# --------------------------------------------------------------------------
+
+# wire bytes a rank moved, by collective, as the reference's HLO counter
+# counts them: all-gather (n-1)/n of its output, reduce-scatter (n-1)/n
+# of its input, all-reduce 2 (n-1)/n of its tensor
+COLLECTIVE_BYTES = {"all_gather": 0, "reduce_scatter": 0, "all_reduce": 0}
+
+
+def reset_collective_bytes() -> None:
+    for k in COLLECTIVE_BYTES:
+        COLLECTIVE_BYTES[k] = 0
+
+
+def _count(kind: str, nbytes: int, n: int, factor: int = 1) -> None:
+    COLLECTIVE_BYTES[kind] += factor * nbytes * (n - 1) // n
+
+
+def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The group's blocks of ``x`` concatenated on ``dim`` in group-rank
+    order (the reference's tiled ``all_gather``)."""
+    import torch.distributed as dist
+
+    n = dist.get_world_size(group)
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    _count("all_gather", n * x.numel() * x.element_size(), n)
+    return torch.cat(parts, dim=dim)
+
+
+def reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The sum over the group of ``x``, this rank's block of it on
+    ``dim`` (the reference's tiled ``psum_scatter``)."""
+    import torch.distributed as dist
+
+    n = dist.get_world_size(group)
+    chunks = [c.contiguous() for c in x.chunk(n, dim=dim)]
+    out = torch.empty_like(chunks[0])
+    dist.reduce_scatter(out, chunks, group=group)
+    _count("reduce_scatter", x.numel() * x.element_size(), n)
+    return out
+
+
+def all_reduce_(x: torch.Tensor, group, op=None) -> torch.Tensor:
+    """``x`` summed (or ``op``) over the group, in place."""
+    import torch.distributed as dist
+
+    n = dist.get_world_size(group)
+    dist.all_reduce(x, op=op or dist.ReduceOp.SUM, group=group)
+    _count("all_reduce", x.numel() * x.element_size(), n, 2)
+    return x
+
+
+# --------------------------------------------------------------------------
+# FSDP execution: parameters gathered at use
+# --------------------------------------------------------------------------
+
+
+class ParamLayout(NamedTuple):
+    """Where a parameter's block lies: its sharded dimension (None when
+    replicated) and that dimension's mesh axes, each larger than 1; the
+    other active axes larger than 1 (``rest``), over which its gradient
+    is all-reduced; its whole shape."""
+    dim: int | None
+    axes: tuple
+    rest: tuple
+    shape: tuple
+
+
+# the logical axes that may shard a parameter's storage
+_STORAGE = ("fsdp", "fsdp_expert")
+
+
+def active_axes(rules: MeshRules) -> tuple:
+    """The mesh axes larger than 1 that ``rules`` does not hold manual."""
+    sizes = mesh_sizes(rules.mesh)
+    return tuple(a for a in rules.all_axes
+                 if a not in rules.manual_axes and sizes[a] > 1)
+
+
+def param_layout(rules: MeshRules, logical: tuple, shape) -> ParamLayout:
+    """The layout of a ``shape`` parameter with logical spec ``logical``
+    under ``rules``: its spec resolved and fitted.  Raises
+    ``NotImplementedError`` where a dimension other than a storage one
+    (``tp``, ``act_seq``, ...) lands on an axis larger than 1, or where
+    two dimensions are sharded: FSDP realises neither."""
+    sizes = mesh_sizes(rules.mesh)
+    spec = fitted(rules, logical, shape)
+    sharded = []
+    for d, (name, entry) in enumerate(zip(logical, spec)):
+        axes = tuple(a for a in _axes(entry) if sizes[a] > 1)
+        if not axes:
+            continue
+        if name not in _STORAGE:
+            raise NotImplementedError(
+                f"logical axis {name!r} of a {tuple(shape)} parameter lands "
+                f"on mesh axes {axes} under strategy {rules.strategy!r}: "
+                "tensor-parallel layers (the model axis) are not realised "
+                "by FSDP execution")
+        sharded.append((d, axes))
+    if len(sharded) > 1:
+        raise NotImplementedError(f"a {tuple(shape)} parameter sharded on "
+                                  f"two dimensions {sharded}")
+    dim, axes = sharded[0] if sharded else (None, ())
+    rest = tuple(a for a in active_axes(rules) if a not in axes)
+    return ParamLayout(dim, axes, rest, tuple(shape))
+
+
+def block_shape(layout: ParamLayout, mesh) -> tuple:
+    shape = list(layout.shape)
+    if layout.dim is not None:
+        shape[layout.dim] //= axes_size(mesh, layout.axes)
+    return tuple(shape)
+
+
+def mark_sharded(p: torch.Tensor, logical: tuple, shape) -> None:
+    """Mark ``p`` as the block of a whole ``shape`` parameter with
+    logical spec ``logical``: :func:`gathered` then gathers it."""
+    p.fsdp_spec = tuple(logical)
+    p.fsdp_shape = tuple(shape)
+
+
+def is_sharded(p: torch.Tensor) -> bool:
+    return getattr(p, "fsdp_spec", None) is not None
+
+
+def layout_of(p: torch.Tensor, rules: MeshRules) -> ParamLayout:
+    """A marked parameter's layout under ``rules``; its block's shape
+    must be the layout's."""
+    layout = param_layout(rules, p.fsdp_spec, p.fsdp_shape)
+    want = block_shape(layout, rules.mesh)
+    if tuple(p.shape) != want:
+        raise ValueError(f"a block of shape {tuple(p.shape)} where the "
+                         f"rules cut {layout.shape} into {want}")
+    return layout
+
+
+class GatherParam(torch.autograd.Function):
+    """Forward: the whole parameter, its block all-gathered (tiled) on
+    its sharded dimension.  Backward: the whole gradient reduce-scattered
+    to the block, then all-reduced over the layout's other axes."""
+
+    @staticmethod
+    def forward(ctx, block, layout: ParamLayout, mesh):
+        ctx.layout, ctx.mesh = layout, mesh
+        if layout.dim is None:
+            return block.view_as(block)
+        return all_gather_dim(block, layout.dim,
+                              axes_group(mesh, layout.axes))
+
+    @staticmethod
+    def backward(ctx, grad):
+        layout, mesh = ctx.layout, ctx.mesh
+        if layout.dim is not None:
+            grad = reduce_scatter_dim(grad, layout.dim,
+                                      axes_group(mesh, layout.axes))
+        if layout.rest:
+            grad = all_reduce_(grad.contiguous().clone(),
+                               axes_group(mesh, layout.rest))
+        return grad, None, None
+
+
+_GATHERED: contextvars.ContextVar[bool] = contextvars.ContextVar(
+    "repro_torch_fsdp_gathered", default=False)
+
+
+def in_gathered() -> bool:
+    """True inside :func:`gathered` on sharded parameters: the weights a
+    layer sees are whole while its activations are the rank's own."""
+    return _GATHERED.get()
+
+
+@contextlib.contextmanager
+def gathered(module, *names: str):
+    """For the length of the block, each marked parameter of ``module``
+    (those named in ``names``, if any) is replaced in its module by its
+    whole tensor gathered through :class:`GatherParam` under the active
+    rules.  Unmarked parameters stay; with none marked this is a no-op.
+    Used inside a ``remat`` region, the backward's recompute gathers
+    again."""
+    marked = [(n, p) for n, p in module.named_parameters()
+              if is_sharded(p) and (not names or n in names)]
+    if not marked:
+        yield module
+        return
+    rules = _ACTIVE.get()
+    if rules is None:
+        raise ValueError("sharded parameters need active MeshRules")
+    swaps = []
+    try:
+        for name, p in marked:
+            owner, _, leaf = name.rpartition(".")
+            mod = module.get_submodule(owner)
+            whole = GatherParam.apply(p, layout_of(p, rules), rules.mesh)
+            swaps.append((mod, leaf, p))
+            mod._parameters[leaf] = whole
+        token = _GATHERED.set(True)
+        try:
+            yield module
+        finally:
+            _GATHERED.reset(token)
+    finally:
+        for mod, leaf, p in swaps:
+            mod._parameters[leaf] = p
+
+
+def norm_group(p: torch.Tensor, rules: MeshRules | None):
+    """The group over which a parameter's block's sum of squares adds
+    up to the whole's (None: the rank holds it whole)."""
+    if rules is None or not is_sharded(p):
+        return None
+    layout = layout_of(p, rules)
+    return None if layout.dim is None else axes_group(rules.mesh,
+                                                      layout.axes)
+
+
+def objective_group(rules: MeshRules):
+    """(group over the active axes or None, its size, how many of its
+    ranks hold each block of the batch): the ranks whose objectives add
+    up to one loss."""
+    axes = active_axes(rules)
+    n = axes_size(rules.mesh, axes) if axes else 1
+    dp = tuple(a for a in _axes(rules.resolve("dp")) if a in axes)
+    dup = n // (axes_size(rules.mesh, dp) if dp else 1)
+    return (axes_group(rules.mesh, axes) if axes else None), n, dup

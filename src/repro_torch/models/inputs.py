@@ -49,6 +49,33 @@ def train_input_specs(cfg: ArchConfig, shape: ShapeSpec):
     return batch, specs
 
 
+def shard_batch(batch: dict, rules, microbatches: int = 1) -> dict:
+    """This rank's block of a whole train batch under ``rules``, by the
+    reference's batch specs (``train_input_specs``): every leaf
+    (``tokens``, ``labels``, ``patch_embeds``, ``frame_embeds``) cut on
+    dimension 0 over ``"dp"``, none when the global batch is 1.  With
+    ``microbatches`` > 1 each of the reference's micro-batches (the
+    batch's consecutive rows in ``microbatches`` equal parts) is cut on
+    its own, so the rank's block, split the same way, gives the rank's
+    part of each."""
+    from repro_torch.distributed import sharding as shd
+
+    out = {}
+    for k, x in batch.items():
+        B = x.shape[0]
+        if B == 1:
+            out[k] = x
+            continue
+        if B % microbatches:
+            raise ValueError(f"{k}: batch {B} in {microbatches} "
+                             "micro-batches")
+        parts = x.reshape(microbatches, B // microbatches, *x.shape[1:])
+        spec = (None, "dp") + (None,) * (x.ndim - 1)
+        out[k] = shd.local_shard(parts, rules.sharding(*spec)).reshape(
+            -1, *x.shape[1:])
+    return out
+
+
 def decode_input_specs(cfg: ArchConfig, shape: ShapeSpec):
     """Inputs for serve_step: one new token per sequence."""
     B = shape.global_batch

@@ -166,6 +166,26 @@ def _xent_chunk(h: torch.Tensor, head_f: torch.Tensor, lab: torch.Tensor):
             mask.sum(), ((logits.argmax(-1) == lab).float() * mask).sum())
 
 
+def xent_sums(hidden: torch.Tensor, head: torch.Tensor,
+              labels: torch.Tensor, *, chunk: int = 1024):
+    """``chunked_softmax_xent``'s loop: (nll sum, z sum, count, correct)
+    as 0-d float32, the first two differentiable."""
+    B, S, D = hidden.shape
+    n_chunks = max(S // chunk, 1)
+    chunk = S // n_chunks
+    hs = hidden.reshape(B, n_chunks, chunk, D)
+    ls = labels.reshape(B, n_chunks, chunk)
+    head_f = head.float()
+    zero = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    loss_sum, z_sum, cnt, correct = zero, zero, zero, zero
+    for c in range(n_chunks):
+        nll, z, n, hit = checkpoint(_xent_chunk, hs[:, c], head_f, ls[:, c],
+                                    use_reentrant=False)
+        loss_sum, z_sum = loss_sum + nll, z_sum + z
+        cnt, correct = cnt + n, correct + hit
+    return loss_sum, z_sum, cnt, correct
+
+
 def chunked_softmax_xent(
     hidden: torch.Tensor,     # (B, S, D) final hidden states
     head: torch.Tensor,       # (D, V) output projection
@@ -180,21 +200,39 @@ def chunked_softmax_xent(
     ``jax.checkpoint(body)``), so the backward recomputes one chunk's
     logits at a time instead of keeping every chunk's.
     Returns ``(loss, {"nll", "accuracy", "tokens"})`` as 0-d float32."""
-    B, S, D = hidden.shape
-    n_chunks = max(S // chunk, 1)
-    chunk = S // n_chunks
-    hs = hidden.reshape(B, n_chunks, chunk, D)
-    ls = labels.reshape(B, n_chunks, chunk)
-    head_f = head.float()
-    zero = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    loss_sum, z_sum, cnt, correct = zero, zero, zero, zero
-    for c in range(n_chunks):
-        nll, z, n, hit = checkpoint(_xent_chunk, hs[:, c], head_f, ls[:, c],
-                                    use_reentrant=False)
-        loss_sum, z_sum = loss_sum + nll, z_sum + z
-        cnt, correct = cnt + n, correct + hit
+    loss_sum, z_sum, cnt, correct = xent_sums(hidden, head, labels,
+                                              chunk=chunk)
     cnt = torch.clamp_min(cnt, 1.0)
     loss = loss_sum / cnt + z_loss * z_sum / cnt
     metrics = {"nll": loss_sum / cnt, "accuracy": correct / cnt,
                "tokens": cnt}
     return loss, metrics
+
+
+def sharded_objective(sums, aux: torch.Tensor, *, z_loss: float = 1e-4):
+    """FSDP execution's loss head under the active rules.  ``sums`` are
+    this rank's ``xent_sums``, ``aux`` its own router loss.  The ranks
+    whose rules are not manual hold the batch's blocks (each block held
+    ``dup`` times when the batch is sharded on fewer axes than the
+    parameters); one all-reduce of the sums and ``aux`` gives the counts
+    the reference divides by, so each rank's objective is its own
+    ``(nll + z_loss z) / count`` over the count of all ranks, plus its
+    ``aux`` over the rank count, and the ranks' objectives add up to the
+    reference's loss.  Returns ``(objective, metrics)``, the metrics the
+    reference's (``loss``, ``nll``, ``accuracy``, ``tokens``,
+    ``aux_loss``), equal on every rank."""
+    from repro_torch.distributed import sharding as shd
+
+    group, n, dup = shd.objective_group(shd.active_rules())
+    loss_sum, z_sum, cnt, correct = sums
+    vec = torch.stack([loss_sum.detach(), z_sum.detach(), cnt, correct,
+                       aux.detach().float()])
+    if group is not None:
+        shd.all_reduce_(vec, group)
+    t_loss, t_z, t_cnt, t_correct, t_aux = vec.unbind()
+    t_cnt = torch.clamp_min(t_cnt, 1.0)
+    objective = loss_sum / t_cnt + z_loss * z_sum / t_cnt + aux / n
+    metrics = {"loss": t_loss / t_cnt + z_loss * t_z / t_cnt + t_aux / n,
+               "nll": t_loss / t_cnt, "accuracy": t_correct / t_cnt,
+               "tokens": t_cnt / dup, "aux_loss": t_aux / n}
+    return objective, metrics

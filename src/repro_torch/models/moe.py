@@ -21,10 +21,15 @@ Each body computes ``C`` from the rank's own token count, as the
 reference does inside its ``shard_map``, and averages ``aux`` and
 ``zloss`` over the fsdp group.  The collectives run through
 ``torch.distributed`` on ``sharding.axes_group``; they carry no
-autograd, so the sharded bodies run forward only (training takes the
-unsharded math on each rank's local weights: ``distributed.
-compression``).  When every mesh axis has size 1, or no rules are
-active, ``moe_ffn`` is ``_moe_math`` on the whole input.
+autograd, so these bodies run forward only.  Training takes the token
+path under FSDP execution: there the block's weights arrive whole,
+gathered at use with an autograd (``sharding.gathered``), and
+``moe_ffn`` runs ``_moe_math`` on the rank's own tokens, ``C`` from
+their count, returning the rank's own ``aux + zloss``, which the loss
+averages over the ranks (``layers.sharded_objective``); the megatron
+body and a ``tp`` group larger than 1 still raise under autograd.  When
+every mesh axis has size 1, or no rules are active, ``moe_ffn`` is
+``_moe_math`` on the whole input.
 
 Where the port has to choose, it chooses the reference's numbers:
 
@@ -159,14 +164,6 @@ def _moe_math(cfg: ArchConfig, x: torch.Tensor, router, w1, w3, w2,
 # ---- sharded bodies -------------------------------------------------------
 
 
-def _all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
-    """The group's blocks of ``x`` concatenated on ``dim`` in group-rank
-    order (the reference's tiled ``all_gather``)."""
-    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, x.contiguous(), group=group)
-    return torch.cat(parts, dim=dim)
-
-
 def _group_mean(x: torch.Tensor, group) -> torch.Tensor:
     x = x.clone()
     dist.all_reduce(x, group=group)
@@ -177,14 +174,14 @@ def _gather_weights(fsdp_group, router, w1, w3, w2, shared):
     """ZeRO-3: reassemble the expert weights' storage shards (the TP dim,
     if any, stays sharded: it is contracted and summed over tp)."""
     if fsdp_group is not None:
-        w1 = _all_gather(w1, 1, fsdp_group)
-        w3 = _all_gather(w3, 1, fsdp_group)
-        w2 = _all_gather(w2, 2, fsdp_group)
+        w1 = shd.all_gather_dim(w1, 1, fsdp_group)
+        w3 = shd.all_gather_dim(w3, 1, fsdp_group)
+        w2 = shd.all_gather_dim(w2, 2, fsdp_group)
         if shared:
             sw1, sw3, sw2 = shared
-            shared = (_all_gather(sw1, 0, fsdp_group),
-                      _all_gather(sw3, 0, fsdp_group),
-                      _all_gather(sw2, 1, fsdp_group))
+            shared = (shd.all_gather_dim(sw1, 0, fsdp_group),
+                      shd.all_gather_dim(sw3, 0, fsdp_group),
+                      shd.all_gather_dim(sw2, 1, fsdp_group))
     return router, w1, w3, w2, shared
 
 
@@ -206,7 +203,7 @@ def _megatron_body(cfg, fsdp_group, tp_group, x, router, w1, w3, w2,
     """Sequence-sharded residual stream: one all-gather, one
     reduce-scatter.  x: (B_local, S_local, D), S sharded over tp."""
     B, _, D = x.shape
-    x_full = x if tp_group is None else _all_gather(x, 1, tp_group)
+    x_full = x if tp_group is None else shd.all_gather_dim(x, 1, tp_group)
     S = x_full.shape[1]
     router, w1, w3, w2, shared = _gather_weights(fsdp_group, router, w1,
                                                  w3, w2, shared)
@@ -246,13 +243,18 @@ def moe_ffn(cfg: ArchConfig, p, x: torch.Tensor):
                             shd.mesh_sizes(rules.mesh).values()):
         out, aux, zloss = _moe_math(cfg, x.reshape(B * S, D), *weights)
         return out.reshape(B, S, D).to(x.dtype), aux + zloss
+    t = rules.table
+    tp_wide = shd.axes_size(rules.mesh, t["tp"]) > 1
+    if shd.in_gathered() and not tp_wide:
+        # FSDP execution: whole weights, the rank's tokens, its own aux
+        out, aux, zloss = _moe_math(cfg, x.reshape(B * S, D), *weights)
+        return out.reshape(B, S, D).to(x.dtype), aux + zloss
 
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, *weights[:4], *(shared or ()))):
         raise NotImplementedError(
             "the sharded MoE bodies run forward only: their collectives "
             "carry no autograd")
-    t = rules.table
     fsdp, tp = _group(rules, t["fsdp_expert"]), _group(rules, t["tp"])
     if rules.strategy == "megatron_sp":
         out, aux, zloss = _megatron_body(cfg, fsdp, tp, x, *weights)

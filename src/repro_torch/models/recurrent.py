@@ -22,9 +22,11 @@ float32 and conv tail ``conv`` (G, K, B, d_conv - 1, H, P).
 In ``loss`` the ``remat`` policy wraps each RWKV block and each Zamba
 group (K Mamba2 layers and the shared block), as the reference's
 ``_remat`` wraps its scan bodies; inside, every chunk step is
-checkpointed on its own (``models.ssm``).  ``decode_step`` writes the
-new state into the cache it is given, in place, and returns it with
-``pos + 1``.
+checkpointed on its own (``models.ssm``).  Under FSDP execution each
+block or group gathers its parameters inside that region, zamba's
+shared block at each of its G uses (``models.transformer``).
+``decode_step`` writes the new state into the cache it is given, in
+place, and returns it with ``pos + 1``.
 """
 
 from __future__ import annotations
@@ -33,13 +35,12 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.sharding import hint
+from repro_torch.distributed.sharding import gathered, hint
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm
 from repro_torch.models.layers import (
     apply_mlp,
     apply_norm,
-    chunked_softmax_xent,
     embed_tokens,
     init_mlp,
     init_norm,
@@ -64,11 +65,8 @@ class _Recurrent(LanguageModel):
     CONSTANTS = ssm.CONSTANT_INIT
 
     def _loss_head(self, h: torch.Tensor, labels: torch.Tensor):
-        h = apply_norm(self.cfg, self.final_norm, h)
-        loss, metrics = chunked_softmax_xent(h, self.embed["head"], labels)
-        metrics["aux_loss"] = torch.zeros((), dtype=torch.float32,
-                                          device=h.device)
-        return loss, metrics
+        return self._objective(h, labels, torch.zeros(
+            (), dtype=torch.float32, device=h.device))
 
     def _empty_cache(self, batch: int, seq: int) -> dict:
         shapes, _ = self.abstract_cache(batch, seq)
@@ -116,10 +114,12 @@ class RWKVModel(_Recurrent):
         return h, ((wkv, a_in[:, -1], m_in[:, -1]) if collect else None)
 
     def _train_block(self, blk: RWKVBlock, h):
-        return self._block(blk, h)[0]
+        with gathered(blk):
+            return self._block(blk, h)[0]
 
     def loss(self, batch):
-        h = self._embed(batch["tokens"])
+        with gathered(self.embed, "tok"), gathered(self.ln_in):
+            h = self._embed(batch["tokens"])
         block = _remat(self._train_block, self.remat)
         for blk in self.blocks:
             h = block(blk, h)
@@ -240,12 +240,17 @@ class ZambaModel(_Recurrent):
         return h, states, kv
 
     def _train_group(self, layers: nn.ModuleList, h, positions):
-        return self._group(layers, h, positions)[0]
+        """One group and a use of the shared block; under FSDP execution
+        the shared block is gathered at each of its G uses, and autograd
+        adds the uses' reduce-scattered gradients into its one block."""
+        with gathered(layers), gathered(self.shared):
+            return self._group(layers, h, positions)[0]
 
     def loss(self, batch):
         cfg = self.cfg
-        h = hint(embed_tokens(self.embed, batch["tokens"],
-                              cfg.compute_dtype), "dp", "act_seq", None)
+        with gathered(self.embed, "tok"):
+            h = hint(embed_tokens(self.embed, batch["tokens"],
+                                  cfg.compute_dtype), "dp", "act_seq", None)
         positions = self._positions(h)
         group = _remat(self._train_group, self.remat)
         for layers in self.mamba:

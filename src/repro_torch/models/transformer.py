@@ -25,6 +25,14 @@ products without batch dimensions, jax's
 as the reference runs them.  Each block returns its router loss beside
 the hidden state, and ``loss`` adds their sum (``aux_loss``).
 
+Under FSDP execution (parameters cut by ``train.steps.
+shard_train_state``, rules active) ``loss`` runs each block with its
+parameters gathered whole at use, inside the ``remat`` region
+(``sharding.gathered``), as are the embedding, final norm and head;
+the batch is the rank's block (``inputs.shard_batch``) and the
+objective is the rank's share of the reference's loss
+(``layers.sharded_objective``), its metrics the reference's.
+
 The decode cache is the reference's: a dict of stacked tensors — ``k``
 and ``v`` ``(L, B, S, K, hd)`` for GQA (int8 plus ``(L, B, S, K)``
 float32 ``k_scale``/``v_scale`` when ``KV_CACHE_QUANT``), MLA's latent
@@ -46,6 +54,7 @@ stacked on (G, K)) need nothing of their own.
 
 from __future__ import annotations
 
+import contextvars
 import functools
 
 import numpy as np
@@ -55,7 +64,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.sharding import hint
+from repro_torch.distributed.sharding import gathered, hint, is_sharded
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (
     apply_mlp,
@@ -66,6 +75,8 @@ from repro_torch.models.layers import (
     init_embed,
     init_mlp,
     init_norm,
+    sharded_objective,
+    xent_sums,
 )
 from repro_torch.models.moe import init_moe, moe_ffn
 
@@ -107,13 +118,22 @@ def _dots_policy(ctx, op, *args, **kwargs):
 
 
 def _remat(fn, policy: str):
+    """``fn`` under the ``policy``.  Each call runs in a copy of the
+    caller's context, and so does its recompute: on the card the
+    backward (and so the recompute) runs on the autograd engine's own
+    thread, where the caller's context variables (the active
+    ``MeshRules``) are not set."""
     if policy == "none":
         return fn
     kw = {}
     if policy == "dots":
         kw["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, _dots_policy)
-    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
+
+    def run(*args):
+        return checkpoint(contextvars.copy_context().run, fn, *args,
+                          use_reentrant=False, **kw)
+    return run
 
 
 def fan_in(part: str, leaf: str, shape) -> int:
@@ -187,6 +207,21 @@ class LanguageModel(nn.Module):
         return torch.arange(S, dtype=torch.int32,
                             device=h.device).expand(B, S)
 
+    def _objective(self, h: torch.Tensor, labels: torch.Tensor,
+                   aux: torch.Tensor):
+        """(loss, metrics) of the last hidden state: final norm, chunked
+        cross entropy and the router loss ``aux``; under FSDP execution
+        the rank's share (``layers.sharded_objective``)."""
+        with gathered(self.final_norm), gathered(self.embed, "head"):
+            h = apply_norm(self.cfg, self.final_norm, h)
+            if is_sharded(self.embed["tok"]):
+                return sharded_objective(
+                    xent_sums(h, self.embed["head"], labels), aux)
+            loss, metrics = chunked_softmax_xent(h, self.embed["head"],
+                                                 labels)
+        metrics["aux_loss"] = aux
+        return loss + aux, metrics
+
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
         """Last-position logits in float32 against a float32 head."""
         h = apply_norm(self.cfg, self.final_norm, h)
@@ -257,10 +292,12 @@ class TransformerLM(LanguageModel):
 
     # ------------------------------------------------------------ train
     def _train_block(self, blk: Block, h, positions):
-        return self._block_fwd(blk, h, positions)[:2]
+        with gathered(blk):
+            return self._block_fwd(blk, h, positions)[:2]
 
     def loss(self, batch):
-        h = self._embed(batch)
+        with gathered(self.embed, "tok"):
+            h = self._embed(batch)
         positions = self._positions(h)
         aux0 = torch.zeros((), dtype=torch.float32, device=h.device)
         for blk in self.pre_blocks:
@@ -271,12 +308,7 @@ class TransformerLM(LanguageModel):
         for blk in self.blocks:
             h, a = block(blk, h, positions)
             aux = aux + a
-        aux = aux + aux0
-        h = apply_norm(self.cfg, self.final_norm, h)
-        loss, metrics = chunked_softmax_xent(h, self.embed["head"],
-                                             batch["labels"])
-        metrics["aux_loss"] = aux
-        return loss + aux, metrics
+        return self._objective(h, batch["labels"], aux + aux0)
 
     # ------------------------------------------------------------ serve
     def _cache_leaves(self) -> dict[str, tuple]:
@@ -456,7 +488,8 @@ def _stacks(names) -> dict[tuple, tuple[int, ...]]:
 def reference_abstract(model: nn.Module, specs_of: dict) -> tuple:
     """(params as meta tensors, logical-axis specs) of ``model`` in the
     reference's tree layout; ``specs_of`` maps (part, leaf) to the
-    leaf's spec, each stacked axis adding a leading None."""
+    leaf's spec, each stacked axis adding a leading None.  A sharded
+    parameter counts whole (``sharding.mark_sharded``)."""
     params = dict(model.named_parameters())
     sizes = _stacks(params)
     shapes, specs = {}, {}
@@ -465,8 +498,9 @@ def reference_abstract(model: nn.Module, specs_of: dict) -> tuple:
         if path in shapes:
             continue
         lead = sizes.get(path, ())
-        shapes[path] = torch.empty((*lead, *p.shape), dtype=p.dtype,
-                                   device="meta")
+        shapes[path] = torch.empty((*lead, *getattr(p, "fsdp_shape",
+                                                     p.shape)),
+                                   dtype=p.dtype, device="meta")
         specs[path] = (None,) * len(lead) + specs_of[path[-2:]]
     return _nest(shapes), _nest(specs)
 

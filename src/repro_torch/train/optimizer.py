@@ -89,10 +89,23 @@ def opt_state_specs(param_specs) -> dict:
     return {"m": param_specs, "v": param_specs, "step": ()}
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of every leaf's float32 sum of squares."""
+def global_norm(tree, groups=None) -> torch.Tensor:
+    """sqrt of the sum of every leaf's float32 sum of squares.  Where
+    ``groups`` (one per leaf) names a process group, the leaf is this
+    rank's block of a sharded whole: the blocks' sums are added over the
+    group; a leaf with None counts once."""
     sq = [x.float().square().sum() for x in _leaves(tree)]
-    return torch.stack(sq).sum().sqrt()
+    if groups is None:
+        return torch.stack(sq).sum().sqrt()
+    from repro_torch.distributed import sharding as shd
+
+    total, by_group = [], {}
+    for s, group in zip(sq, groups):
+        (total if group is None else by_group.setdefault(group, [])
+         ).append(s)
+    for group, parts in by_group.items():
+        total.append(shd.all_reduce_(torch.stack(parts).sum(), group))
+    return torch.stack(total).sum().sqrt()
 
 
 @torch.no_grad()
@@ -103,9 +116,16 @@ def adamw_update(cfg: OptConfig, grads, params, opt_state, decay=None):
 
     Weight decay applies where ``p.ndim >= 2`` (norms and biases are
     1-D), or where ``decay``, a tree of bools shaped like ``params``,
-    says so."""
+    says so.  Under active rules, sharded parameters' gradients are
+    their blocks, and the clip's norm adds the blocks' squares over
+    their groups (``global_norm``)."""
+    from repro_torch.distributed import sharding as shd
+
     g_leaves = _leaves(grads)
     p_leaves = _leaves(params)
+    rules = shd.active_rules()
+    groups = (None if rules is None else
+              [shd.norm_group(p, rules) for p in p_leaves])
     decays = ([p.ndim >= 2 for p in p_leaves] if decay is None
               else _leaves(decay))
     step = opt_state["step"] + 1
@@ -113,7 +133,7 @@ def adamw_update(cfg: OptConfig, grads, params, opt_state, decay=None):
     lr = lr_schedule(cfg)(step)
     b1, b2 = cfg.betas
 
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, groups)
     scale = torch.clamp(cfg.clip_norm / torch.clamp_min(gnorm, 1e-9),
                         max=1.0)
     bc1 = 1 - _f32(b1, step) ** stepf

@@ -7,6 +7,14 @@ and the step updates in place.  ``models.transformer.
 train_state_to_reference`` / ``train_state_from_reference`` move it to
 and from the reference's layout (``blocks`` stacked on L, zamba's
 ``mamba`` on (G, K)), the layout train checkpoints keep.
+
+FSDP execution: ``shard_train_state(model, state, rules)`` cuts every
+parameter and moment to this rank's block of the reference's spec,
+fitted (``sharding.fit_spec``); ``make_train_step``'s step, called under
+``sharding.use_rules(rules)`` with the rank's block of the batch
+(``models.inputs.shard_batch``), gathers each block's weights at use,
+reduce-scatters the gradients back to the blocks and updates them
+there; its metrics are the reference's, equal on every rank.
 """
 
 from __future__ import annotations
@@ -15,6 +23,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.models.transformer import reference_path
 from repro_torch.train.optimizer import (
     OptConfig,
@@ -48,13 +57,17 @@ def make_train_step(model, opt_cfg: OptConfig, *, microbatches: int = 1):
     live activations shrink by the factor while the math stays the
     reference's.  Metrics are 0-d tensors: ``loss``, ``nll``,
     ``accuracy``, ``tokens``, ``aux_loss``, ``grad_norm`` and ``step``.
+    On a sharded state (``shard_train_state``) under active rules the
+    accumulators are the blocks' shapes, and ``loss`` is the reference's
+    (the model's metrics carry it: its objective is the rank's share).
     """
 
     def grad_fn(params: dict, batch: dict):
         loss, metrics = model.loss(batch)
         grads = torch.autograd.grad(loss, list(params.values()))
         metrics = {k: v.detach() for k, v in metrics.items()}
-        return loss.detach(), metrics, dict(zip(params, grads))
+        return metrics.pop("loss", loss.detach()), metrics, dict(
+            zip(params, grads))
 
     def train_step(state: dict, batch: dict):
         params = state["params"]
@@ -95,8 +108,40 @@ def make_eval_step(model):
     @torch.no_grad()
     def eval_step(batch):
         loss, metrics = model.loss(batch)
-        return dict(metrics, loss=loss)
+        return dict({"loss": loss}, **metrics)
     return eval_step
+
+
+def param_specs(model) -> dict[str, tuple]:
+    """Each parameter's logical spec, by name: its reference leaf's spec
+    (``model.SPECS``) without the stacked axes."""
+    return {n: model.SPECS[reference_path(n)[0][-2:]]
+            for n, _ in model.named_parameters()}
+
+
+@torch.no_grad()
+def shard_train_state(model, state: dict, rules: shd.MeshRules) -> dict:
+    """FSDP: ``state``'s parameters (the model's own) and moments cut to
+    this rank's blocks of their fitted specs under ``rules``, in place
+    (each parameter keeps its object, holding its block and marked with
+    its logical spec and whole shape: ``sharding.mark_sharded``); the
+    whole tensors are freed.  A spec FSDP cannot realise raises
+    (``sharding.param_layout``).  Every rank calls it together: it makes
+    the process groups the step will use."""
+    specs = param_specs(model)
+    opt = state["opt"]
+    for name, p in state["params"].items():
+        layout = shd.param_layout(rules, specs[name], p.shape)
+        for axes in (layout.axes, layout.rest):
+            if axes:
+                shd.axes_group(rules.mesh, axes)
+        sharding = rules.named(shd.fitted(rules, specs[name], p.shape))
+        shd.mark_sharded(p, specs[name], p.shape)
+        p.data = shd.local_shard(p.data, sharding).clone()
+        for moments in (opt["m"], opt["v"]):
+            moments[name] = shd.local_shard(moments[name], sharding).clone()
+    shd.objective_group(rules)
+    return state
 
 
 def init_train_state(model, generator: torch.Generator,

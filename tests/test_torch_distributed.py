@@ -25,18 +25,15 @@ the sharded MoE output at rel 1e-5, ``aux`` and ``zloss`` at 1e-6.
 JAX is imported inside the tests and the reference's subprocesses."""
 
 import functools
-import os
 import re
-import subprocess
-import sys
-import textwrap
-import time
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 from _hyp import given, settings, st
+from _multirank import (WORLD, _coord, _NamedMesh, _np, _ranks, _reference,
+                        _spec_leaves, _unflatten)
 
 from repro_torch import pytree
 from repro_torch.configs import get_config
@@ -44,10 +41,6 @@ from repro_torch.distributed import compression as pt_comp
 from repro_torch.distributed import sharding as shd
 from repro_torch.launch import mesh as pt_mesh
 
-ROOT = Path(__file__).resolve().parents[1]
-WORLD = 4
-RANK_DEADLINE_S = 300.0
-REF_TIMEOUT_S = 900
 TRAIN_TOL = {"rtol": 1e-5, "atol": 1e-4}
 METRIC_TOL = {"rtol": 1e-4, "atol": 1e-4}
 MOE_TOL = {"rtol": 1e-5, "atol": 1e-6}
@@ -75,14 +68,6 @@ TOKEN_LOGICAL = ("tokens", None, None)
 
 
 # --------------------------------------------------------------- helpers
-def _np(x) -> np.ndarray:
-    if isinstance(x, torch.Tensor):
-        x = x.detach().cpu()
-        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
-    a = np.asarray(x)
-    return a.astype(np.float32) if a.dtype.name == "bfloat16" else a
-
-
 def _bf16_exact(a: np.ndarray) -> np.ndarray:
     """``a`` rounded to the nearest bf16 values, held in float32."""
     return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
@@ -94,144 +79,6 @@ def _ulps(got: np.ndarray, want: np.ndarray) -> int:
         i = np.ascontiguousarray(a, dtype=np.float32).view(np.int32)
         return np.where(i < 0, np.int64(-2**31) - i, i).astype(np.int64)
     return int(np.abs(ordered(got) - ordered(want)).max(initial=0))
-
-
-def _spec_leaves(tree, path=""):
-    """(key, spec tuple) of a spec tree of dicts and lists, keys spelled
-    as ``jax.tree_util.keystr`` and ``pytree`` spell them."""
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _spec_leaves(tree[k], f"{path}[{k!r}]")
-    elif isinstance(tree, list):
-        for i, v in enumerate(tree):
-            yield from _spec_leaves(v, f"{path}[{i}]")
-    else:
-        yield path, tuple(tree)
-
-
-def _unflatten(flat: dict) -> dict:
-    """{"['a']['b']": leaf} -> {"a": {"b": leaf}}; dicts whose keys are
-    all positions become lists."""
-    tree: dict = {}
-    for key, leaf in flat.items():
-        parts = [m.group(1) if m.group(1) is not None else int(m.group(2))
-                 for m in re.finditer(r"\['([^']*)'\]|\[(\d+)\]", key)]
-        node = tree
-        for p in parts[:-1]:
-            node = node.setdefault(p, {})
-        node[parts[-1]] = leaf
-
-    def lists(node):
-        if not isinstance(node, dict):
-            return node
-        if node and all(isinstance(k, int) for k in node):
-            return [lists(node[i]) for i in range(len(node))]
-        return {k: lists(v) for k, v in node.items()}
-    return lists(tree)
-
-
-def _coord(c) -> str:
-    return ",".join(str(int(i)) for i in c)
-
-
-# ------------------------------------------- the reference's subprocesses
-PRELUDE = textwrap.dedent("""
-    import os, sys
-    os.sched_setaffinity(0, {max(os.sched_getaffinity(0))})
-    os.nice(10)
-    from pathlib import Path
-    import numpy as np
-    import jax, jax.numpy as jnp
-    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-    TMP = Path(sys.argv[1])
-    OUT = {}
-
-    def mesh_of(shape, names):
-        n = int(np.prod(shape))
-        return Mesh(np.array(jax.devices()[:n]).reshape(shape), names)
-
-    def coord(mesh, device):
-        return ",".join(str(int(i)) for i in
-                        np.argwhere(mesh.devices == device)[0])
-
-    def keyed(tree):
-        return {jax.tree_util.keystr(k): v for k, v in
-                jax.tree_util.tree_flatten_with_path(
-                    tree, is_leaf=lambda x: isinstance(x, P))[0]}
-
-    def host(a):
-        a = np.asarray(a)
-        return a.astype(np.float32) if a.dtype.name == "bfloat16" else a
-""")
-
-
-def _reference(prog: str, tmp: Path, **consts) -> dict:
-    """Run ``prog`` in a subprocess on a 4-device CPU platform; returns
-    the ``.npz`` it writes.  Only the subprocess's environment carries
-    the flags."""
-    env = {**os.environ,
-           "PYTHONPATH": os.pathsep.join(
-               p for p in (str(ROOT / "src"), os.environ.get("PYTHONPATH"))
-               if p),
-           "JAX_PLATFORMS": "cpu",
-           "XLA_FLAGS": "--xla_force_host_platform_device_count=4 "
-                        "--xla_cpu_multi_thread_eigen=false "
-                        "intra_op_parallelism_threads=1"}
-    head = "".join(f"{k} = {v!r}\n" for k, v in consts.items())
-    code = (PRELUDE + head + textwrap.dedent(prog)
-            + '\nnp.savez(TMP / "ref.npz", **OUT)\n')
-    out = subprocess.run([sys.executable, "-c", code, str(tmp)], env=env,
-                         capture_output=True, text=True,
-                         timeout=REF_TIMEOUT_S)
-    assert out.returncode == 0, out.stderr[-6000:]
-    with np.load(tmp / "ref.npz") as z:
-        return dict(z)
-
-
-# ------------------------------------------------------ the port's ranks
-def _quiet() -> None:
-    """Keep this process to one core, the same for every reference
-    subprocess and rank (they run one group at a time), at a lower
-    priority: the suite's other workers, timing-sensitive tests among
-    them, keep the rest of the machine."""
-    os.sched_setaffinity(0, {max(os.sched_getaffinity(0))})
-    os.nice(10)
-
-
-def _rank_main(rank, world, init, tmp, job):
-    import torch.distributed as dist
-    _quiet()
-    torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=init, rank=rank,
-                            world_size=world)
-    try:
-        res = JOBS[job](rank, Path(tmp))
-        np.savez(Path(tmp) / f"rank{rank}.npz", **res)
-    finally:
-        dist.destroy_process_group()
-
-
-def _ranks(job: str, tmp: Path) -> list[dict]:
-    """Spawn ``WORLD`` gloo ranks running ``JOBS[job]``; a hung or failed
-    rank fails the fixture within ``RANK_DEADLINE_S``."""
-    ctx = torch.multiprocessing.spawn(
-        _rank_main, args=(WORLD, f"file://{tmp}/pg", str(tmp), job),
-        nprocs=WORLD, join=False)
-    deadline = time.monotonic() + RANK_DEADLINE_S
-    try:
-        while not ctx.join(timeout=1.0):   # re-raises a failed rank's error
-            if time.monotonic() > deadline:
-                raise AssertionError(f"{job}: a gloo rank did not finish in "
-                                     f"{RANK_DEADLINE_S:.0f} s")
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.kill()
-    out = []
-    for r in range(WORLD):
-        with np.load(tmp / f"rank{r}.npz") as z:
-            out.append(dict(z))
-    return out
 
 
 # ================================================================ codec
@@ -411,17 +258,6 @@ def test_abstract_compressed_state_equals_reference(arch):
 
 
 # ============================================== placements without ranks
-class _NamedMesh:
-    """An object that names its axes and sizes, and one coordinate."""
-
-    def __init__(self, shape, names, coord):
-        self.shape, self.mesh_dim_names = tuple(shape), tuple(names)
-        self._coord = list(coord)
-
-    def get_coordinate(self):
-        return self._coord
-
-
 def test_placements_follow_the_spec():
     from torch.distributed.tensor import Replicate, Shard
     mesh = _NamedMesh((2, 2, 2), ("pod", "data", "model"), (0, 1, 1))
@@ -588,7 +424,7 @@ def pod_run(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("pod")
     np.savez(tmp / "inputs.npz", **_pod_inputs())
     return _reference(PROG_POD, tmp, POD_MESHES=POD_MESHES,
-                      POD_LEAVES=POD_LEAVES), _ranks("pod", tmp)
+                      POD_LEAVES=POD_LEAVES), _ranks(_job_pod, tmp)
 
 
 @pytest.mark.parametrize("what", ["tot", "e", "g"])
@@ -716,7 +552,7 @@ def train_run(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("train")
     ref = _reference(PROG_TRAIN, tmp, TRAIN_MESHES=TRAIN_MESHES,
                      TRAIN_STEPS=TRAIN_STEPS, TRAIN_OPT=TRAIN_OPT)
-    return ref, _ranks("train", tmp)
+    return ref, _ranks(_job_train, tmp)
 
 
 def _assert_state_close(got: np.ndarray, want: np.ndarray, key: str,
@@ -879,7 +715,7 @@ def place_run(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("place")
     ref = _reference(PROG_PLACE, tmp, PLACE_ARCHS=PLACE_ARCHS,
                      PLACE_MESHES=PLACE_MESHES, UNEVEN=UNEVEN)
-    return ref, _ranks("place", tmp)
+    return ref, _ranks(_job_place, tmp)
 
 
 @pytest.mark.parametrize("strategy", shd.STRATEGIES)
@@ -1003,7 +839,7 @@ def moe_run(tmp_path_factory):
     ref = _reference(PROG_MOE, tmp, MOE_CASES=MOE_CASES,
                      MESHES=PLACE_MESHES, X_LOGICAL=X_LOGICAL,
                      TOKEN_LOGICAL=TOKEN_LOGICAL)
-    return ref, _ranks("moe", tmp)
+    return ref, _ranks(_job_moe, tmp)
 
 
 @pytest.mark.parametrize("strategy,mname,cf", MOE_CASES)
@@ -1050,10 +886,6 @@ def _with_cf(cfg, cf):
     import dataclasses
     return dataclasses.replace(cfg, moe=dataclasses.replace(
         cfg.moe, capacity_factor=cf))
-
-
-JOBS = {"pod": _job_pod, "train": _job_train, "place": _job_place,
-        "moe": _job_moe}
 
 
 # ================================================================ card
