@@ -101,10 +101,11 @@
     memory bound (every expert's weights are read each step); the
     shipped config's bf16 invariant (448 + 64 against 512, capacity
     factor 1.25) printed without a gate.
-18. Mixture-of-experts invariant: the same model in float32 (62.8 GB of
-    weights), whole, at capacity factor n_routed / top_k (no token
-    dropped in prefill, as decode drops none): 512 + 512 against 1024,
-    batch 2, held to rtol/atol 2e-2.
+18. Mixture-of-experts invariant: the same widths in float32 with the
+    dense layer and 5 of the 26 MoE layers (``MOE_F32_WHY``), at
+    capacity factor n_routed / top_k (no token dropped in prefill, as
+    decode drops none): 512 + 512 against 1024, batch 2, held to
+    rtol/atol 2e-2.
 19. Mixture-of-experts train: deepseek_v2_lite_16b's widths with its
     dense layer and 5 MoE layers (3,424,675,840 parameters, ~41 GB of
     bf16 params and grads and float32 moments), the yi_9b train phase's
@@ -146,6 +147,25 @@
     each rank's output bit-equal to the single-card ``_moe_math`` on its
     tokens with the whole weights; its megatron body in float32 on (data
     1, model 2) within 1e-5 of the largest output.
+
+24. FSDP on one card: two gloo ranks on (data 2, model 1) under
+    ``fsdp``, each holding half of every parameter and moment: yi_9b at
+    full width with 1 layer in float32 against the unsharded step, with
+    2 layers in bf16 timed, and deepseek_v2_lite_16b's dense and one MoE
+    layer's gradients against the single-card math.
+25. The model axis on one card: two gloo ranks on (data 1, model 2),
+    yi_9b's heads, d_ff and vocabulary split in two.  (a) yi_9b at full
+    width with 1 layer in float32 under ``megatron_sp``, 2 steps of 2 x
+    1024 tokens against the unsharded step of the same seed (params and
+    moments at atol 1e-4 / rtol 1e-5), then ``tp_sp`` serving of 4
+    prompts of 1024 tokens and 16 greedy decode steps against the
+    single-card model (logits within 1e-4 of its largest, tokens
+    equal); (b) 2 layers in bf16 under ``megatron_sp``, 2 x 4096 tokens
+    from packed ingest, 4 timed steps (wall, wire bytes by kind a rank
+    a step, peak memory), and ``tp_sp`` serving in bf16 timed; (c)
+    deepseek_v2_lite_16b's dense and one MoE layer in float32 under
+    ``megatron_sp``: one step's gradients against the single-card
+    gradients on the same tokens, within 1e-4 of each leaf's largest.
 
 Each path runs with the kernels' launch counts set to 0 just before it
 and read just after; every kernel of a path must have launched (the
@@ -232,10 +252,16 @@ BF16_PEAK_FLOPS = 989e12       # H100 SXM data sheet, dense
 # mixture of experts and MLA: deepseek_v2_lite_16b (src/repro/configs/
 # deepseek_v2_lite_16b.py:17-46) served whole, as yi_9b is (the same
 # requests and cache slots: 27 x 8 x 4096 x (512 + 64) bf16 latents),
-# its float32 invariant whole, and trained at full width with its dense
+# and its float32 invariant and training at full width with its dense
 # layer and 5 of its 26 MoE layers (3,424,675,840 parameters: bf16
 # params and grads and float32 moments ~41 GB; all 27 layers ~188 GB)
 MOE_ARCH, MOE_TRAIN_LAYERS = "deepseek_v2_lite_16b", 6
+# its float32 invariant at the train phase's depth, cut for phase 25
+MOE_F32_LAYERS = 6
+MOE_F32_WHY = ("all 27 layers in float32 (62.8 GB of weights) took 89.9 s "
+               "of the script's time on an H100, the longest phase; 6 "
+               "layers (the dense one and 5 MoE) make room for the model "
+               "axis's phase in the script's 20 minutes")
 MOE_KV_BYTES = 27 * SERVE_BATCH * SERVE_MAX_SEQ * (512 + 64) * 2
 MOE_TRAIN_WHY = ("bf16 params and grads with float32 AdamW moments of all "
                  "15.7 B parameters need ~188 GB, more than one card's 80 GB")
@@ -293,6 +319,22 @@ FS_MOE_LAYERS, FS_MOE_SEQ = 2, 1024
 FS_TRAIN_TOL = {"rtol": 1e-5, "atol": 1e-4}    # tests/test_torch_fsdp.py
 FS_MOE_TOL = {"rtol": 1e-5, "atol": 1e-6}      # tests/test_torch_distributed.py
 FS_DEADLINE_S = 600
+# the model axis on one card (phase 25): 2 gloo ranks on cuda:0, mesh
+# (data 1, model 2), every rank the same sequences; (a) yi_9b at full
+# width with 1 layer in float32 under megatron_sp, 2 steps of 2 x 1024
+# tokens against the unsharded step, then tp_sp serving of 4 prompts of
+# 1024 tokens and 16 greedy decode steps against the single-card model;
+# (b) 2 layers in bf16, 2 x 4096 tokens, 4 timed steps, and tp_sp
+# serving in bf16 timed; (c) deepseek_v2_lite_16b's dense and one MoE
+# layer in float32 under megatron_sp, one step's gradients against the
+# single-card gradients on the same 1024 tokens
+TP_RANKS, TP_F32_LAYERS, TP_F32_STEPS, TP_F32_BATCH = 2, 1, 2, 2
+TP_F32_SEQ, TP_SERVE_BATCH, TP_SERVE_SEQ, TP_DECODE = 1024, 4, 1024, 16
+TP_BF16_LAYERS, TP_BF16_STEPS, TP_BF16_BATCH = 2, 4, 2
+TP_MOE_LAYERS, TP_MOE_SEQ = 2, 1024
+TP_LOGIT_TOL = 1e-4        # of the single-card model's largest logit
+TP_GRAD_TOL = 1e-4         # of each gradient leaf's largest entry
+TP_DEADLINE_S = 600
 SSM_INVARIANT_BF16 = (192, 64)
 SSM_F32_LAYERS = {"rwkv6_3b": 32, "zamba2_2p7b": 6}
 SSM_F32_WHOLE = (256, 256)
@@ -1485,7 +1527,7 @@ MOE_PATHS = ("moe serve", "moe train")
 SSM_PATHS = tuple(f"{a} {p}" for a in SSM_ARCHS
                   for p in ("serve", "train"))
 PATHS = PLANE_PATHS + TRAIN_PATHS + MOE_PATHS + SSM_PATHS + (
-    "multi-device", "fsdp")
+    "multi-device", "fsdp", "model axis")
 
 
 def table_planes(P, store, table: dict, seed: int, card: str) -> dict:
@@ -1867,12 +1909,13 @@ def moe_serve_path(P, dev, seed: int, card: str) -> dict:
 
 def moe_invariant_path(P, dev, seed: int, card: str) -> dict:
     """The prefill/decode invariant of deepseek_v2_lite_16b at full width
-    and depth in float32 (62.8 GB of weights), gated at
+    with ``MOE_F32_LAYERS`` layers in float32, gated at
     ``INVARIANT_TOL``, with a capacity factor of n_routed / top_k so
     that prefill drops no token (decode never does: C = 8 >= B)."""
     _free_card()
     cfg = P.configs.get_config(MOE_ARCH)
-    full = dataclasses.replace(_f32(cfg), moe=dataclasses.replace(
+    full = dataclasses.replace(_f32(cfg), n_layers=MOE_F32_LAYERS,
+                               moe=dataclasses.replace(
         cfg.moe, capacity_factor=cfg.moe.n_routed / cfg.moe.top_k))
     model, init_s = _seeded(P, full, dev, seed)
     nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
@@ -1890,6 +1933,8 @@ def moe_invariant_path(P, dev, seed: int, card: str) -> dict:
           f"{inv['max_abs_logit']:.4f}, within {INVARIANT_TOL}: "
           f"{inv['within_2e-2']}; {inv['wall_s']:.3f} s, peak "
           f"{inv['peak_mem_GB']:.3f} GB  [{card}]", flush=True)
+    print(f"reduced: moe invariant at {MOE_F32_LAYERS} of {cfg.name}'s "
+          f"{cfg.n_layers} layers: {MOE_F32_WHY}")
     print(f"reduced: moe invariant at capacity factor "
           f"{full.moe.capacity_factor:.4f} (n_routed / top_k) for the "
           f"shipped {cfg.moe.capacity_factor}: at 1.25 a "
@@ -2230,7 +2275,7 @@ def flash_path(P, dev, seed: int, card: str) -> dict:
 
 def moe_paths(P, dev, seed: int, card: str) -> dict:
     """deepseek_v2_lite_16b: served whole in bf16, its float32 invariant
-    whole, trained at full width on its dense layer and 5 MoE layers."""
+    and training at full width on its dense layer and 5 MoE layers."""
     out = {"moe serve": moe_serve_path(P, dev, seed, card)}
     out["moe invariant"] = moe_invariant_path(P, dev, seed, card)
     out["moe train"] = train_path(P, dev, seed, card, arch=MOE_ARCH,
@@ -2752,14 +2797,15 @@ def _fs_close(got: dict, want: dict, tol: dict, outliers: float = 0.0,
             "ok": ok and bad <= outliers * n}
 
 
-def _fs_batches(P, vol, rank: int, seed: int, steps: int) -> list:
+def _fs_batches(P, vol, rank: int, seed: int, steps: int,
+                dp_size: int = FS_RANKS) -> list:
     """This rank's packed words of the first ``steps`` global batches
-    (``TRAIN_BATCH`` sequences, each rank its half)."""
+    (``TRAIN_BATCH`` sequences, each of ``dp_size`` ranks its part)."""
     from repro_torch.train.trainer import _on_device
 
     loader = P.pipeline.ObjectDataLoader(
         vol, "corpus", global_batch=TRAIN_BATCH, dp_rank=rank,
-        dp_size=FS_RANKS, seed=seed, packed=True, prefetch=2)
+        dp_size=dp_size, seed=seed, packed=True, prefetch=2)
     try:
         return [_on_device(next(loader), DEVICE)["tokens_packed"]
                 for _ in range(steps)]
@@ -2970,29 +3016,36 @@ def _fs_rank(rank: int, world: int, init: str, tmp: str, seed: int) -> None:
         dist.destroy_process_group()
 
 
+def _spawned(fn, ranks: int, seed: int, deadline_s: float, what: str
+             ) -> list:
+    """Run ``fn(rank, world, init, tmp, seed)`` in ``ranks`` spawned
+    processes; each writes ``rank{r}.json``, returned in rank order."""
+    with tempfile.TemporaryDirectory() as d:
+        tmp = Path(d)
+        ctx = torch.multiprocessing.spawn(
+            fn, args=(ranks, f"file://{tmp}/pg", str(tmp), seed),
+            nprocs=ranks, join=False)
+        deadline = time.monotonic() + deadline_s
+        try:
+            while not ctx.join(timeout=1.0):
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"{what}: a rank did not finish "
+                                         f"in {deadline_s} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+        return [json.loads((tmp / f"rank{r}.json").read_text())
+                for r in range(ranks)]
+
+
 def fsdp_path(P, dev, seed: int, card: str) -> dict:
     """Phase 24: ``FS_RANKS`` gloo ranks on this one card run the train
     step with its state sharded ZeRO-3 style (``train.steps.
     shard_train_state`` under ``MeshRules(strategy="fsdp")``)."""
     _free_card()
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as d:
-        tmp = Path(d)
-        ctx = torch.multiprocessing.spawn(
-            _fs_rank, args=(FS_RANKS, f"file://{tmp}/pg", str(tmp), seed),
-            nprocs=FS_RANKS, join=False)
-        deadline = time.monotonic() + FS_DEADLINE_S
-        try:
-            while not ctx.join(timeout=1.0):
-                if time.monotonic() > deadline:
-                    raise AssertionError(f"fsdp: a rank did not finish in "
-                                         f"{FS_DEADLINE_S} s")
-        finally:
-            for proc in ctx.processes:
-                if proc.is_alive():
-                    proc.kill()
-        ranks = [json.loads((tmp / f"rank{r}.json").read_text())
-                 for r in range(FS_RANKS)]
+    ranks = _spawned(_fs_rank, FS_RANKS, seed, FS_DEADLINE_S, "fsdp")
     wall = time.perf_counter() - t0
     a = ranks[0]["f32"]
     b = [r["bf16"] for r in ranks]
@@ -3048,6 +3101,370 @@ def fsdp_path(P, dev, seed: int, card: str) -> dict:
             x["launches"]["bitunpack"] == FS_F32_STEPS
             for x in (r["f32"] for r in ranks)):
         raise AssertionError(f"fsdp: aux {c['aux_loss']}, launches "
+                             f"{[r['f32']['launches'] for r in ranks]}")
+    return res
+
+
+# --------------------------------------------------------------------------
+# the model axis on one card (phase 25)
+# --------------------------------------------------------------------------
+
+
+def _tp_rel(got: dict, want: dict, tol: float) -> dict:
+    """(worst |err| over a leaf's largest entry, its leaf) of two trees;
+    ``ok`` when that stays within ``tol``."""
+    worst, at = 0.0, None
+    for k, w in want.items():
+        w = w.float()
+        err = float((got[k].float() - w).abs().max())
+        rel = err / max(float(w.abs().max()), 1e-30)
+        if rel >= worst:
+            worst, at = rel, k
+    return {"max_rel_err": worst, "leaf": at, "ok": worst <= tol}
+
+
+def _tp_serve(model, prompts: torch.Tensor, steps: int) -> tuple:
+    """(logits of the prefill and each decode step, greedy tokens) of
+    ``steps`` decode steps after a prefill of ``prompts``, each step's
+    input its own last greedy tokens."""
+    logits, cache = model.prefill({"tokens": prompts},
+                                  max_seq=prompts.shape[1] + steps)
+    outs, toks = [logits], []
+    for _ in range(steps):
+        tok = logits.argmax(-1, keepdim=True).int()
+        toks.append(tok)
+        logits, cache = model.decode_step(tok, cache)
+        outs.append(logits)
+    return outs, toks
+
+
+def _tp_f32(P, train, serve, words: list, seed: int) -> dict:
+    """(a): yi_9b, ``TP_F32_LAYERS`` layer at full width in float32 under
+    ``megatron_sp``, ``TP_F32_STEPS`` steps of the same 2 x 1024 tokens on
+    both ranks, against the unsharded step (rank 0); then the seeded
+    weights served under ``tp_sp`` against the single-card model."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.train import steps
+
+    dev = torch.device(DEVICE)
+    cfg = dataclasses.replace(P.configs.get_config(TRAIN_ARCH),
+                              n_layers=TP_F32_LAYERS,
+                              param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    opt = P.optimizer.OptConfig(lr=TRAIN_LR, warmup_steps=2,
+                                total_steps=TP_F32_STEPS)
+    batches = [P.ingest.fused_batch(w[:TP_F32_BATCH, :TP_F32_SEQ // 32])
+               for w in words[:TP_F32_STEPS]]
+    prompts = P.ingest.fused_batch(
+        words[0][:TP_SERVE_BATCH, :TP_SERVE_SEQ // 32])["tokens"]
+
+    def seeded():
+        return P.archs.build_model(cfg, remat="full", device=dev).init(
+            torch.Generator(device=dev).manual_seed(seed))
+
+    model = P.archs.build_model(cfg, remat="full", device=dev)
+    state = steps.init_train_state(
+        model, torch.Generator(device=dev).manual_seed(seed))
+    state = steps.shard_train_state(model, state, train)
+    step = steps.make_train_step(model, opt)
+    losses = []
+    with shd.use_rules(train):
+        for b in batches:
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))
+        got = {"params": _fs_whole(P, model, state["params"], train),
+               "m": _fs_whole(P, model, state["opt"]["m"], train),
+               "v": _fs_whole(P, model, state["opt"]["v"], train)}
+    del model, state, step
+    _free_card()
+    model = seeded()
+    steps.shard_params(model, serve)
+    shd.reset_collective_bytes()
+    with torch.no_grad(), shd.use_rules(serve):
+        logits, toks = _tp_serve(model, prompts, TP_DECODE)
+    moved = dict(shd.COLLECTIVE_BYTES)
+    del model
+    _free_card()
+    res = {"losses": losses, "tokens": list(batches[0]["tokens"].shape),
+           "prompts": list(prompts.shape), "serve_bytes": moved}
+    if dist.get_rank() == 0:
+        model = P.archs.build_model(cfg, remat="full", device=dev)
+        state = steps.init_train_state(
+            model, torch.Generator(device=dev).manual_seed(seed))
+        step = steps.make_train_step(model, opt)
+        want_losses = []
+        for b in batches:
+            state, m = step(state, b)
+            want_losses.append(float(m["loss"]))
+        lr_moved = 2 * TRAIN_LR * TP_F32_STEPS
+        res.update(
+            unsharded_losses=want_losses,
+            params=_fs_close(got["params"], {n: p.detach() for n, p in
+                                             state["params"].items()},
+                             FS_TRAIN_TOL, 1e-3, lr_moved),
+            m=_fs_close(got["m"], state["opt"]["m"], FS_TRAIN_TOL),
+            v=_fs_close(got["v"], state["opt"]["v"], FS_TRAIN_TOL))
+        del model, state, step
+        _free_card()
+        model = seeded()
+        with torch.no_grad():
+            want, want_toks = _tp_serve(model, prompts, TP_DECODE)
+        top = max(float(w.abs().max()) for w in want)
+        err = max(float((g - w).abs().max()) for g, w in zip(logits, want))
+        res["serve"] = {
+            "max_abs_err": err, "max_abs_logit": top,
+            "within": err <= TP_LOGIT_TOL * top,
+            "tokens_equal": all(torch.equal(a, b)
+                                for a, b in zip(toks, want_toks))}
+        del model, want
+    del got, logits
+    _free_card()
+    return res
+
+
+def _tp_bf16(P, train, serve, words: list, seed: int) -> dict:
+    """(b): yi_9b, ``TP_BF16_LAYERS`` layers at full width in bf16 under
+    ``megatron_sp``, ``TP_BF16_STEPS`` timed steps of the same two
+    4096-token sequences on both ranks, with the collective bytes of
+    each step; then its trained weights served under ``tp_sp`` (on
+    (data 1, model 2) the same blocks), timed."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.train import steps
+
+    dev = torch.device(DEVICE)
+    cfg = dataclasses.replace(P.configs.get_config(TRAIN_ARCH),
+                              n_layers=TP_BF16_LAYERS)
+    opt = P.optimizer.OptConfig(lr=TRAIN_LR, warmup_steps=2,
+                                total_steps=TP_BF16_STEPS)
+    model = P.archs.build_model(cfg, remat="full", device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    state = steps.init_train_state(
+        model, torch.Generator(device=dev).manual_seed(seed))
+    state = steps.shard_train_state(model, state, train)
+    local = sum(p.numel() for p in model.parameters())
+    step = steps.make_train_step(model, opt)
+    prompts = P.ingest.fused_batch(
+        words[0][:TP_SERVE_BATCH, :TP_SERVE_SEQ // 32])["tokens"]
+    _free_card()
+    torch.distributed.barrier()          # rank 0 ran (a)'s unsharded work
+    torch.cuda.reset_peak_memory_stats(dev)
+    walls, losses, moved = [], [], []
+    _zero_counts(P)                      # the path's run starts here
+    with shd.use_rules(train):
+        for w in words[:TP_BF16_STEPS]:
+            _sync(dev)
+            shd.reset_collective_bytes()
+            t = time.perf_counter()
+            state, m = step(state, P.ingest.fused_batch(w[:TP_BF16_BATCH]))
+            losses.append(float(m["loss"]))          # syncs
+            walls.append(time.perf_counter() - t)
+            moved.append(dict(shd.COLLECTIVE_BYTES))
+    launches = _counts(P)                # ... and ends here
+    peak = torch.cuda.max_memory_allocated(dev)
+    del state, step
+    _free_card()
+    serve_walls, serve_bytes = [], []
+    with torch.no_grad(), shd.use_rules(serve):
+        _sync(dev)
+        shd.reset_collective_bytes()
+        t = time.perf_counter()
+        logits, cache = model.prefill({"tokens": prompts},
+                                      max_seq=TP_SERVE_SEQ + TP_DECODE)
+        tok = logits.argmax(-1, keepdim=True).int()     # syncs
+        prefill_s = time.perf_counter() - t
+        prefill_bytes = dict(shd.COLLECTIVE_BYTES)
+        for _ in range(TP_DECODE):
+            shd.reset_collective_bytes()
+            t = time.perf_counter()
+            logits, cache = model.decode_step(tok, cache)
+            tok = logits.argmax(-1, keepdim=True).int()
+            serve_walls.append(time.perf_counter() - t)
+            serve_bytes.append(dict(shd.COLLECTIVE_BYTES))
+    del model, cache, logits
+    _free_card()
+    return {"params": n_params, "local_params": local, "step_s": walls,
+            "losses": losses, "bytes": moved, "peak_mem_GB": peak / 1e9,
+            "launches": launches, "prefill_s": prefill_s,
+            "prefill_bytes": prefill_bytes, "decode_s": serve_walls,
+            "decode_bytes": serve_bytes[-1]}
+
+
+def _tp_moe(P, train, words: list, seed: int) -> dict:
+    """(c): deepseek_v2_lite_16b's dense layer and one MoE layer at full
+    width in float32, capacity n_routed / top_k, under ``megatron_sp``:
+    one step's gradients, gathered, against the single-card gradients
+    of the same tokens (rank 0)."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.train import steps
+
+    dev = torch.device(DEVICE)
+    base = P.configs.get_config(MOE_ARCH)
+    cfg = dataclasses.replace(
+        base, n_layers=TP_MOE_LAYERS, param_dtype=torch.float32,
+        compute_dtype=torch.float32, moe=dataclasses.replace(
+            base.moe, capacity_factor=base.moe.n_routed / base.moe.top_k))
+    model = P.archs.build_model(cfg, remat="full", device=dev)
+    state = steps.init_train_state(
+        model, torch.Generator(device=dev).manual_seed(seed))
+    state = steps.shard_train_state(model, state, train)
+    batch = P.ingest.fused_batch(words[0][:1, :TP_MOE_SEQ // 32])
+    params = state["params"]
+    _sync(dev)
+    t = time.perf_counter()
+    with shd.use_rules(train):
+        loss, metrics = model.loss(batch)
+        grads = torch.autograd.grad(loss, list(params.values()))
+    _sync(dev)
+    res = {"tp_s": time.perf_counter() - t,
+           "tokens": list(batch["tokens"].shape),
+           "aux_loss": float(metrics["aux_loss"]),
+           "loss": float(metrics["loss"])}
+    got = _fs_whole(P, model, dict(zip(params, grads)), train)
+    del model, state, grads, params
+    _free_card()
+    if dist.get_rank() == 0:
+        model = P.archs.build_model(cfg, remat="full", device=dev)
+        model.init(torch.Generator(device=dev).manual_seed(seed))
+        params = dict(model.named_parameters())
+        _sync(dev)
+        t = time.perf_counter()
+        loss, m = model.loss(batch)
+        want = dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()))))
+        _sync(dev)
+        res.update(single_card_s=time.perf_counter() - t,
+                   single_card_loss=float(loss.detach()),
+                   single_card_aux=float(m["aux_loss"]),
+                   grads=_tp_rel(got, want, TP_GRAD_TOL))
+        del model, params, want
+    del got
+    _free_card()
+    return res
+
+
+def _tp_rank(rank: int, world: int, init: str, tmp: str, seed: int) -> None:
+    import torch.distributed as dist
+    P = _load_port()
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=world)
+    try:
+        from repro_torch.distributed import sharding as shd
+        from repro_torch.launch import mesh as lmesh
+
+        mesh = lmesh.make_smoke_mesh((1, TP_RANKS), ("data", "model"))
+        train = shd.MeshRules(mesh, strategy="megatron_sp")
+        serve = shd.MeshRules(mesh, strategy="tp_sp")
+        store = P.core.make_store(8, replicas=2)
+        try:
+            vol = P.core.GlobalVOL(store)
+            P.corpus.build_corpus(vol, P.corpus.CorpusSpec(
+                n_seqs=FS_CORPUS_SEQS, seq_len=TRAIN_SEQ,
+                vocab_size=P.configs.get_config(TRAIN_ARCH).vocab_size,
+                seed=seed), chunk_rows=FS_CORPUS_SEQS)
+            words = _fs_batches(P, vol, 0, seed, TP_BF16_STEPS, dp_size=1)
+        finally:
+            store.close()
+        walls = {}
+        t = time.perf_counter()
+        _zero_counts(P)
+        res = {"f32": _tp_f32(P, train, serve, words, seed)}
+        res["f32"]["launches"] = _counts(P)
+        walls["a_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        res["bf16"] = _tp_bf16(P, train, serve, words, seed)
+        walls["b_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        _zero_counts(P)
+        res["moe"] = _tp_moe(P, train, words, seed)
+        res["moe"]["launches"] = _counts(P)
+        walls["c_s"] = time.perf_counter() - t
+        res["walls"] = walls
+        (Path(tmp) / f"rank{rank}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_path(P, dev, seed: int, card: str) -> dict:
+    """Phase 25: ``TP_RANKS`` gloo ranks on this one card run yi_9b's and
+    deepseek_v2_lite_16b's layers split over the model axis
+    (``MeshRules(strategy="megatron_sp")`` for training, ``"tp_sp"`` for
+    serving), against the single-card model."""
+    _free_card()
+    t0 = time.perf_counter()
+    ranks = _spawned(_tp_rank, TP_RANKS, seed, TP_DEADLINE_S, "model axis")
+    wall = time.perf_counter() - t0
+    a = ranks[0]["f32"]
+    b = [r["bf16"] for r in ranks]
+    c = ranks[0]["moe"]
+    per_step = [{k: v for k, v in x.items() if v} for x in b[0]["bytes"]]
+    launches = {k: sum(x["launches"][k] for x in b) for k in KERNELS}
+    res = {"ranks": TP_RANKS, "wall_s": wall, "f32": a, "bf16": b,
+           "moe": c, "launches": launches}
+    print("model axis: " + json.dumps(res), flush=True)
+    print(f"model axis (a): {TRAIN_ARCH} {TP_F32_LAYERS} layer in float32 "
+          f"under megatron_sp on (data 1, model {TP_RANKS}), "
+          f"{TP_F32_STEPS} steps of {a['tokens']} tokens: losses "
+          f"{a['losses']} against unsharded {a['unsharded_losses']}; "
+          f"gathered params {a['params']}, m {a['m']}, v {a['v']}; tp_sp "
+          f"serving of {a['prompts']} prompt tokens and {TP_DECODE} greedy "
+          f"decode steps against the single-card model: {a['serve']}  "
+          f"[{card}]", flush=True)
+    dec = b[0]["decode_s"]
+    print(f"model axis (b): {TRAIN_ARCH} {TP_BF16_LAYERS} layers "
+          f"({b[0]['params']} params, {b[0]['local_params']} a rank) in "
+          f"bf16 under megatron_sp, {TP_BF16_STEPS} packed-ingest steps of "
+          f"{TP_BF16_BATCH} x {TRAIN_SEQ} tokens on both ranks: losses "
+          f"rank 0 {[round(x, 4) for x in b[0]['losses']]}, rank 1 "
+          f"{[round(x, 4) for x in b[1]['losses']]}; step walls (s) rank 0 "
+          f"{[round(x, 4) for x in b[0]['step_s']]}, rank 1 "
+          f"{[round(x, 4) for x in b[1]['step_s']]}; wire bytes a rank a "
+          f"step {per_step}; peak memory "
+          f"{[round(x['peak_mem_GB'], 3) for x in b]} GB; tp_sp serving in "
+          f"bf16: prefill of {TP_SERVE_BATCH} x {TP_SERVE_SEQ} "
+          f"{b[0]['prefill_s'] * 1e3:.3f} ms ({b[0]['prefill_bytes']} B), "
+          f"decode {np.mean(dec) * 1e3:.3f} ms a step (median "
+          f"{np.median(dec) * 1e3:.3f}; {b[0]['decode_bytes']} B a step); "
+          f"bitunpack launches {[x['launches']['bitunpack'] for x in b]}  "
+          f"[{card}]", flush=True)
+    print(f"model axis (c): {MOE_ARCH} dense + MoE layer in float32 at "
+          f"capacity n_routed / top_k under megatron_sp, {c['tokens']} "
+          f"tokens, one step's gathered gradients against the single-card "
+          f"gradients: {c['grads']}; loss {c['loss']!r} / "
+          f"{c['single_card_loss']!r}, aux_loss {c['aux_loss']!r} / "
+          f"{c['single_card_aux']!r}; model axis {c['tp_s']:.3f} s, single "
+          f"card {c['single_card_s']:.3f} s; "
+          f"parts (s) "
+          f"{ {k: round(v, 1) for k, v in ranks[0]['walls'].items()} }, "
+          f"phase {wall:.1f} s  [{card}]", flush=True)
+    print(f"reduced: model axis at {TP_F32_LAYERS} and {TP_BF16_LAYERS} of "
+          f"{TRAIN_ARCH}'s 48 layers and {TP_MOE_LAYERS} of {MOE_ARCH}'s 27, "
+          f"2 ranks sharing one card over gloo (the production mesh is "
+          f"(16, 16) over NCCL)")
+    for name, r in (("params", a["params"]), ("m", a["m"]), ("v", a["v"]),
+                    ("moe grads", c["grads"])):
+        if not r["ok"]:
+            raise AssertionError(f"model axis: {name} {r}")
+    if not (a["serve"]["within"] and a["serve"]["tokens_equal"]):
+        raise AssertionError(f"model axis: serving {a['serve']}")
+    if launches != {"bitunpack": TP_RANKS * TP_BF16_STEPS, "filter_agg": 0,
+                    "block_agg": 0}:
+        raise AssertionError(f"model axis launches {launches}")
+    for x in b:
+        if not all(np.isfinite(x["losses"])) or \
+                not x["losses"][-1] < x["losses"][0]:
+            raise AssertionError(f"model axis: losses {x['losses']}")
+    if b[0]["losses"] != b[1]["losses"]:
+        raise AssertionError(f"model axis: ranks report different losses "
+                             f"{[x['losses'] for x in b]}")
+    if not c["aux_loss"] > 0 or not all(
+            r["f32"]["launches"]["bitunpack"] == TP_F32_STEPS + 1
+            for r in ranks):
+        raise AssertionError(f"model axis: aux {c['aux_loss']}, launches "
                              f"{[r['f32']['launches'] for r in ranks]}")
     return res
 
@@ -3220,6 +3637,8 @@ def main(argv=None) -> int:
     lap("multi-device on one card")
     planes["fsdp"] = fsdp_path(P, dev, args.seed, card)
     lap("FSDP on one card")
+    planes["model axis"] = tp_path(P, dev, args.seed, card)
+    lap("model axis on one card")
 
     scans = {"scan": res["launches"],
              "packed ingest": ing["launches"]["bitunpack"],

@@ -24,10 +24,12 @@ scale a tensor, and the sum is decoded with the mean scale:
 
 The compressed train step takes a replicated state or an FSDP one
 (``train.steps.shard_train_state`` under ``fsdp_dp``, the reference's
-compressed cells of the ssm and hybrid families).  In the reference the
-step is manual over "pod" only and GSPMD shards (data, model) inside
-each pod, so a pod's gradient leaf is one array: its scale is the max
-over the whole pod-local leaf.  The FSDP step therefore runs the model
+compressed cells of the ssm and hybrid families, or under
+``megatron_sp``, its cells of the attention families on (pod, data,
+model), the parameters then cut on their ``tp`` dimension too).  In
+the reference the step is manual over "pod" only and GSPMD shards
+(data, model) inside each pod, so a pod's gradient leaf is one array:
+its scale is the max over the whole pod-local leaf.  The FSDP step therefore runs the model
 under rules manual over "pod" on each parameter's pod-local block,
 which reduce-scatters the pod-local gradient over the pod's other axes;
 each scale's max is all-reduced over them before ``_scale``.
@@ -233,9 +235,16 @@ def make_compressed_train_step(model, opt_cfg, rules: shd.MeshRules):
     gradients and each tensor's (int32 sum, scale sum) before the
     update.
 
-    A strategy whose ``tp`` lands on a model axis larger than 1 needs
-    tensor-parallel layers, which the port's models do not have: that
-    raises ``ValueError``, as does a mesh without a pod axis."""
+    A strategy whose ``tp`` lands on a model axis larger than 1
+    (``megatron_sp`` on (pod, data, model)) runs the FSDP step on a
+    state whose parameters are cut on their ``tp`` dimension too: the
+    model's tensor-parallel layers run on the rank's slices inside the
+    pod, and a ``tp``-cut leaf's scale is the max over its model slices
+    as over its storage blocks.  There a replicated state raises
+    ``ValueError`` (cut it with ``shard_train_state``), and a model
+    without tensor-parallel layers (the recurrent families)
+    ``NotImplementedError``.  A mesh without a pod axis raises
+    ``ValueError``."""
     from repro_torch.models.transformer import reference_path
     from repro_torch.train.optimizer import adamw_update
     from repro_torch.train.steps import reference_decay
@@ -244,10 +253,13 @@ def make_compressed_train_step(model, opt_cfg, rules: shd.MeshRules):
     sizes = shd.mesh_sizes(mesh)
     if "pod" not in sizes:
         raise ValueError(f"the mesh {rules.all_axes} has no 'pod' axis")
-    if shd.axes_size(mesh, rules.table["tp"]) > 1:
-        raise ValueError(f"model axis of {sizes['model']}: strategy "
-                         f"{rules.strategy!r} needs tensor-parallel layers "
-                         "there, which the port's models do not have")
+    tp_wide = shd.axes_size(mesh, rules.table["tp"]) > 1
+    if tp_wide and not getattr(model, "TENSOR_PARALLEL", False):
+        raise NotImplementedError(
+            f"model axis of {sizes['model']} under strategy "
+            f"{rules.strategy!r}: {type(model).__name__} has no "
+            "tensor-parallel layers (the recurrent families' model axis is "
+            "not realised)")
     n_data, n_pod = sizes.get("data", 1), sizes["pod"]
     data = mesh.get_group("data") if n_data > 1 else None
     pod = mesh.get_group("pod")
@@ -264,6 +276,9 @@ def make_compressed_train_step(model, opt_cfg, rules: shd.MeshRules):
         params = state["params"]
         if shd.is_sharded(next(iter(params.values()))):
             return fsdp_step(state, batch, observe)
+        if tp_wide:
+            raise ValueError(f"strategy {rules.strategy!r} splits the model "
+                             "axis: cut the state with shard_train_state")
         with shd.use_rules(None):
             loss, metrics = model.loss(batch)
         grads = dict(zip(params, torch.autograd.grad(
@@ -385,7 +400,8 @@ def init_compressed_state(state: dict, rules: shd.MeshRules | None = None
             raise ValueError("an FSDP state's error blocks need its rules")
         inner = _pod_local(rules)
         return shd.block_shape(
-            shd.param_layout(inner, p.fsdp_spec, p.fsdp_shape), rules.mesh)
+            shd.param_layout(inner, p.fsdp_spec, p.fsdp_shape,
+                             tp=getattr(p, "fsdp_tp", True)), rules.mesh)
 
     err = {name: torch.zeros((1, *block(p)), dtype=torch.float32,
                              device=p.device)

@@ -36,19 +36,38 @@ a dimension keeps the leading axes of its spec entry that divide it.
 ``train.steps.shard_train_state`` cuts each parameter and moment to this
 rank's block of that fitted spec and marks the parameter with its
 logical spec and whole shape (``mark_sharded``).  Inside the models,
-:func:`gathered` swaps a module's marked parameters for their whole
+:func:`gathered` swaps a module's marked parameters for their gathered
 tensors for the length of a block, each through :class:`GatherParam`:
-forward, a tiled all-gather of the block on its sharded dimension over
-``axes_group(mesh, axes)``; backward, the gradient reduce-scattered back
-to the block and all-reduced over the other active axes, so every
-parameter's gradient is summed over every rank whose rules are not
-manual.  The models normalise each rank's objective so that the ranks'
-objectives add up to the reference's one loss (``models.layers.
-sharded_objective``); that sum is then the gradient.  Only the storage
-axes ``fsdp`` and ``fsdp_expert`` may shard a parameter: a ``tp`` (or
-any other) entry over an axis larger than 1 raises, the model axis
-being another part of the port.  :data:`COLLECTIVE_BYTES` counts the
-wire bytes of the collectives this module runs.
+forward, a tiled all-gather of the block on its storage dimension
+(``fsdp`` / ``fsdp_expert``) over ``axes_group(mesh, axes)``; backward,
+the gradient reduce-scattered back to the block and all-reduced over the
+active axes that neither store nor split it.
+
+The model axis (tensor parallelism).  A ``tp`` dimension is not
+gathered: the layer runs on the rank's slice (heads, d_ff, experts' F,
+the vocabulary) and writes its collectives itself, Megatron-style, as
+the reference's GSPMD inserts them: :func:`all_gather`,
+:func:`reduce_scatter` and :func:`all_reduce` are autograd functions
+whose backward is their exact adjoint (gather <-> reduce-scatter on the
+same dimension, sum <-> sum); :func:`logical_group` names the group of
+a logical axis (``tp``, ``act_seq``, ``sp``) and the rank's index in it.
+Where :func:`fit_spec` drops ``tp`` (the axis does not divide the
+dimension) the parameter is whole on every model rank and its layer runs
+unsplit.  A parameter may be cut on a storage and a ``tp`` dimension at
+once (``wq`` is ``("fsdp", "tp", None)``).
+
+The gradient rule: the ranks' objectives add up to the reference's one
+loss (``models.layers.sharded_objective``), every cross-rank data flow
+is a collective with its exact adjoint, and a parameter's gradient is
+summed over the axes on which it is replicated, never over those that
+shard it.  So Megatron's f/g pair (an input copy whose backward is an
+all-reduce) is not used: with the sum over replicas it would count each
+gradient ``model`` times.  A ``tp`` entry over an axis larger than 1
+raises ``NotImplementedError`` for a model whose layers have no
+tensor-parallel form (``param_layout(..., tp=False)``: the recurrent
+families), and any other logical axis on a parameter raises too.
+:data:`COLLECTIVE_BYTES` counts the wire bytes of the collectives this
+module runs.
 """
 
 from __future__ import annotations
@@ -489,6 +508,12 @@ def reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     return out
 
 
+def reduce_op(name: str):
+    """``torch.distributed.ReduceOp`` by name (``"sum"``, ``"max"``)."""
+    import torch.distributed as dist
+    return getattr(dist.ReduceOp, name.upper())
+
+
 def all_reduce_(x: torch.Tensor, group, op=None) -> torch.Tensor:
     """``x`` summed (or ``op``) over the group, in place."""
     import torch.distributed as dist
@@ -499,20 +524,130 @@ def all_reduce_(x: torch.Tensor, group, op=None) -> torch.Tensor:
     return x
 
 
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim: int, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return reduce_scatter_dim(grad, ctx.dim, ctx.group), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim: int, group):
+        ctx.dim, ctx.group = dim, group
+        return reduce_scatter_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_gather_dim(grad, ctx.dim, ctx.group), None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce_(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_(grad.contiguous().clone(), ctx.group), None
+
+
+def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """:func:`all_gather_dim` with autograd: its backward reduce-scatters
+    the gradient on ``dim``.  The group is kept for the backward, which
+    may run on autograd's own thread.  ``group`` None: ``x``."""
+    return x if group is None else _AllGather.apply(x, dim, group)
+
+
+def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """:func:`reduce_scatter_dim` with autograd: its backward all-gathers
+    the gradient on ``dim``.  ``group`` None: ``x``."""
+    return x if group is None else _ReduceScatter.apply(x, dim, group)
+
+
+def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """The group's sum of ``x`` (a new tensor) with autograd: its
+    backward sums the gradient over the group.  ``group`` None: ``x``."""
+    return x if group is None else _AllReduce.apply(x, group)
+
+
+class AxisGroup(NamedTuple):
+    """The ranks over some mesh axes: their process group, how many they
+    are and this rank's index among them (row-major over the axes)."""
+    group: Any
+    size: int
+    index: int
+
+
+def logical_group(rules: "MeshRules | None", logical) -> AxisGroup | None:
+    """The group over the mesh axes larger than 1 that the logical axis
+    ``logical`` resolves to under ``rules`` (manual axes dropped), or
+    None where they span one rank or no rules are active."""
+    if rules is None:
+        return None
+    sizes = mesh_sizes(rules.mesh)
+    axes = tuple(a for a in _axes(rules.resolve(logical)) if sizes[a] > 1)
+    if not axes:
+        return None
+    names, coord = rules.all_axes, rules.mesh.get_coordinate()
+    index = 0
+    for a in axes:
+        index = index * sizes[a] + int(coord[names.index(a)])
+    return AxisGroup(axes_group(rules.mesh, axes), axes_size(rules.mesh,
+                                                             axes), index)
+
+
+def tp_group(whole: int, local: int) -> AxisGroup | None:
+    """The ``tp`` group of the active rules when a layer's split dimension
+    of ``whole`` entries holds ``local`` on this rank (its weights are
+    the rank's slice), else None: the layer runs unsplit."""
+    if local == whole:
+        return None
+    group = logical_group(_ACTIVE.get(), "tp")
+    if group is None or local * group.size != whole:
+        raise ValueError(f"a slice of {local} of {whole} entries where the "
+                         "active rules split none over the model axis")
+    return group
+
+
+def seq_slice(x: torch.Tensor, dim: int, group: AxisGroup | None
+              ) -> torch.Tensor:
+    """This rank's block of ``x`` on ``dim`` among ``group``'s ranks (the
+    residual stream's ``act_seq`` cut); ``x`` when ``group`` is None.  A
+    length the group does not divide raises ``ValueError``."""
+    if group is None:
+        return x
+    n = x.shape[dim]
+    if n % group.size:
+        raise ValueError(f"sequence of {n} does not divide over the "
+                         f"{group.size} ranks of the model axis")
+    step = n // group.size
+    return x.narrow(dim, group.index * step, step)
+
+
 # --------------------------------------------------------------------------
 # FSDP execution: parameters gathered at use
 # --------------------------------------------------------------------------
 
 
 class ParamLayout(NamedTuple):
-    """Where a parameter's block lies: its sharded dimension (None when
-    replicated) and that dimension's mesh axes, each larger than 1; the
-    other active axes larger than 1 (``rest``), over which its gradient
-    is all-reduced; its whole shape."""
+    """Where a parameter's block lies: its storage dimension (None when
+    not stored sharded) and that dimension's mesh axes, each larger than
+    1; the other active axes larger than 1 that neither store nor split
+    it (``rest``), over which its gradient is all-reduced; its whole
+    shape; and its tensor-parallel dimension and axes (None, ()), which
+    are never gathered."""
     dim: int | None
     axes: tuple
     rest: tuple
     shape: tuple
+    tp_dim: int | None = None
+    tp_axes: tuple = ()
 
 
 # the logical axes that may shard a parameter's storage
@@ -526,46 +661,61 @@ def active_axes(rules: MeshRules) -> tuple:
                  if a not in rules.manual_axes and sizes[a] > 1)
 
 
-def param_layout(rules: MeshRules, logical: tuple, shape) -> ParamLayout:
+def param_layout(rules: MeshRules, logical: tuple, shape, *,
+                 tp: bool = True) -> ParamLayout:
     """The layout of a ``shape`` parameter with logical spec ``logical``
-    under ``rules``: its spec resolved and fitted.  Raises
-    ``NotImplementedError`` where a dimension other than a storage one
-    (``tp``, ``act_seq``, ...) lands on an axis larger than 1, or where
-    two dimensions are sharded: FSDP realises neither."""
+    under ``rules``: its spec resolved and fitted.  At most one storage
+    dimension (``fsdp`` / ``fsdp_expert``) and one ``tp`` dimension may
+    land on axes larger than 1.  Raises ``NotImplementedError`` where a
+    ``tp`` dimension does and ``tp`` is False (a model without
+    tensor-parallel layers), where another logical axis does, or where
+    two dimensions of one kind do."""
     sizes = mesh_sizes(rules.mesh)
     spec = fitted(rules, logical, shape)
-    sharded = []
+    stored, split = [], []
     for d, (name, entry) in enumerate(zip(logical, spec)):
         axes = tuple(a for a in _axes(entry) if sizes[a] > 1)
         if not axes:
             continue
-        if name not in _STORAGE:
+        if name == "tp" and not tp:
+            raise NotImplementedError(
+                f"logical axis 'tp' of a {tuple(shape)} parameter lands on "
+                f"mesh axes {axes} under strategy {rules.strategy!r}: this "
+                "model's tensor-parallel layers (the model axis) are not "
+                "realised")
+        if name not in (*_STORAGE, "tp"):
             raise NotImplementedError(
                 f"logical axis {name!r} of a {tuple(shape)} parameter lands "
-                f"on mesh axes {axes} under strategy {rules.strategy!r}: "
-                "tensor-parallel layers (the model axis) are not realised "
-                "by FSDP execution")
-        sharded.append((d, axes))
-    if len(sharded) > 1:
+                f"on mesh axes {axes}: only storage and tensor-parallel "
+                "dimensions are realised")
+        (split if name == "tp" else stored).append((d, axes))
+    if len(stored) > 1 or len(split) > 1:
         raise NotImplementedError(f"a {tuple(shape)} parameter sharded on "
-                                  f"two dimensions {sharded}")
-    dim, axes = sharded[0] if sharded else (None, ())
-    rest = tuple(a for a in active_axes(rules) if a not in axes)
-    return ParamLayout(dim, axes, rest, tuple(shape))
+                                  f"two dimensions {stored + split}")
+    dim, axes = stored[0] if stored else (None, ())
+    tp_dim, tp_axes = split[0] if split else (None, ())
+    rest = tuple(a for a in active_axes(rules)
+                 if a not in axes and a not in tp_axes)
+    return ParamLayout(dim, axes, rest, tuple(shape), tp_dim, tp_axes)
 
 
 def block_shape(layout: ParamLayout, mesh) -> tuple:
     shape = list(layout.shape)
-    if layout.dim is not None:
-        shape[layout.dim] //= axes_size(mesh, layout.axes)
+    for d, axes in ((layout.dim, layout.axes),
+                    (layout.tp_dim, layout.tp_axes)):
+        if d is not None:
+            shape[d] //= axes_size(mesh, axes)
     return tuple(shape)
 
 
-def mark_sharded(p: torch.Tensor, logical: tuple, shape) -> None:
+def mark_sharded(p: torch.Tensor, logical: tuple, shape,
+                 tp: bool = True) -> None:
     """Mark ``p`` as the block of a whole ``shape`` parameter with
-    logical spec ``logical``: :func:`gathered` then gathers it."""
+    logical spec ``logical``: :func:`gathered` then gathers it.  ``tp``
+    False: its model has no tensor-parallel layers (``param_layout``)."""
     p.fsdp_spec = tuple(logical)
     p.fsdp_shape = tuple(shape)
+    p.fsdp_tp = tp
 
 
 def is_sharded(p: torch.Tensor) -> bool:
@@ -575,7 +725,8 @@ def is_sharded(p: torch.Tensor) -> bool:
 def layout_of(p: torch.Tensor, rules: MeshRules) -> ParamLayout:
     """A marked parameter's layout under ``rules``; its block's shape
     must be the layout's."""
-    layout = param_layout(rules, p.fsdp_spec, p.fsdp_shape)
+    layout = param_layout(rules, p.fsdp_spec, p.fsdp_shape,
+                          tp=getattr(p, "fsdp_tp", True))
     want = block_shape(layout, rules.mesh)
     if tuple(p.shape) != want:
         raise ValueError(f"a block of shape {tuple(p.shape)} where the "
@@ -584,9 +735,10 @@ def layout_of(p: torch.Tensor, rules: MeshRules) -> ParamLayout:
 
 
 class GatherParam(torch.autograd.Function):
-    """Forward: the whole parameter, its block all-gathered (tiled) on
-    its sharded dimension.  Backward: the whole gradient reduce-scattered
-    to the block, then all-reduced over the layout's other axes."""
+    """Forward: the parameter whole on its storage dimension, its block
+    all-gathered (tiled) there; a ``tp`` dimension stays the rank's
+    slice.  Backward: the gradient reduce-scattered to the block, then
+    all-reduced over the layout's ``rest``."""
 
     @staticmethod
     def forward(ctx, block, layout: ParamLayout, mesh):
@@ -614,7 +766,8 @@ _GATHERED: contextvars.ContextVar[bool] = contextvars.ContextVar(
 
 def in_gathered() -> bool:
     """True inside :func:`gathered` on sharded parameters: the weights a
-    layer sees are whole while its activations are the rank's own."""
+    layer sees are whole on their storage dimension (a ``tp`` dimension
+    stays the rank's slice) while its activations are the rank's own."""
     return _GATHERED.get()
 
 
@@ -622,10 +775,10 @@ def in_gathered() -> bool:
 def gathered(module, *names: str):
     """For the length of the block, each marked parameter of ``module``
     (those named in ``names``, if any) is replaced in its module by its
-    whole tensor gathered through :class:`GatherParam` under the active
-    rules.  Unmarked parameters stay; with none marked this is a no-op.
-    Used inside a ``remat`` region, the backward's recompute gathers
-    again."""
+    tensor gathered on its storage dimension through
+    :class:`GatherParam` under the active rules.  Unmarked parameters
+    stay; with none marked this is a no-op.  Used inside a ``remat``
+    region, the backward's recompute gathers again."""
     marked = [(n, p) for n, p in module.named_parameters()
               if is_sharded(p) and (not names or n in names)]
     if not marked:
@@ -654,12 +807,16 @@ def gathered(module, *names: str):
 
 def norm_group(p: torch.Tensor, rules: MeshRules | None):
     """The group over which a parameter's block's sum of squares adds
-    up to the whole's (None: the rank holds it whole)."""
+    up to the whole's: its storage and ``tp`` axes (None: the rank holds
+    it whole)."""
     if rules is None or not is_sharded(p):
         return None
     layout = layout_of(p, rules)
-    return None if layout.dim is None else axes_group(rules.mesh,
-                                                      layout.axes)
+    axes = set(layout.axes) | set(layout.tp_axes)
+    if not axes:
+        return None
+    return axes_group(rules.mesh, tuple(a for a in rules.all_axes
+                                        if a in axes))
 
 
 def objective_group(rules: MeshRules):

@@ -25,6 +25,21 @@ into it in place at ``min(pos, S - 1)`` (the reference's
 ``dynamic_update_slice`` clamps the same way), with keys
 ``arange(S) <= pos`` valid and a plain softmax.
 
+Under the model axis (``distributed.sharding``), as the reference's
+``HEAD_TP = "padded"`` lays it out: ``wq`` and ``wo`` (MLA: also ``wuk``
+and ``wuv``) hold the rank's slice of the heads, ``wk`` / ``wv`` / ``wdkv``
+are whole, and each rank attends with its query heads against the KV
+heads they read; ``wo``'s output is then the rank's partial sum, which
+the caller adds up (``layers.tp_combine``).  Where the model axis does
+not divide the heads the weights are whole and the layer runs unsplit.
+Decode against a cache cut on the sequence over ``sp`` (a ``sharding.
+AxisGroup``: each rank holds its block of the positions) is the
+reference's sharded softmax made explicit: the query heads all-gathered
+over the model axis, each rank's max, sum of exponentials and weighted
+values over its own positions, combined over ``sp`` (flash-decode),
+the rank's ``wo`` slice applied and the output all-reduced.  Only the
+rank that owns position ``min(pos, S - 1)`` writes it.
+
 MLA (DeepSeek-V2) prefill up-projects the latent and runs the same
 flash attention with K == H, q and k of nope + rope = 192 and v of 128
 (scale ``192 ** -0.5``).  Its decode is the absorbed form over the
@@ -41,6 +56,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.models.layers import _param, apply_rope
 
 _NEG = -1e30
@@ -257,12 +273,34 @@ def _qkv(cfg: ArchConfig, p, x: torch.Tensor, positions: torch.Tensor):
             apply_rope(k, positions, cfg.rope_theta), v)
 
 
+def _local_kv(k: torch.Tensor, v: torch.Tensor, head0: int, n: int,
+              G: int):
+    """The KV heads that query heads ``head0 .. head0 + n - 1`` read (head
+    h reads KV head h // G), so that flash's group size ``n // K_local``
+    pairs each local query head with its own."""
+    if n == k.shape[2] * G:
+        return k, v
+    lo = head0 // G
+    if n % G == 0 and head0 % G == 0:
+        return k[:, :, lo:lo + n // G], v[:, :, lo:lo + n // G]
+    if G % n == 0 and head0 % n == 0:          # every local head reads one
+        return k[:, :, lo:lo + 1], v[:, :, lo:lo + 1]
+    idx = torch.arange(head0, head0 + n, device=k.device) // G
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
 def gqa_forward(cfg: ArchConfig, p, x: torch.Tensor,
                 positions: torch.Tensor, *, q_offset: int = 0,
                 kv_out: bool = False):
-    """Prefill attention.  Returns (out, (k, v)) — k/v for the cache."""
+    """Prefill attention.  Returns (out, (k, v)) — k/v (every KV head)
+    for the cache; with ``wq`` / ``wo`` the rank's head slice, ``out``
+    is its partial sum."""
     q, k, v = _qkv(cfg, p, x, positions)
-    o = flash_attention(q, k, v, causal=True, q_offset=q_offset)
+    n = q.shape[2]
+    tp = shd.tp_group(cfg.n_heads, n)
+    k_h, v_h = _local_kv(k, v, 0 if tp is None else tp.index * n, n,
+                         cfg.n_heads // cfg.n_kv_heads)
+    o = flash_attention(q, k_h, v_h, causal=True, q_offset=q_offset)
     out = torch.einsum("bshk,hkd->bsd", o, p["wo"])
     return out, ((k, v) if kv_out else None)
 
@@ -275,35 +313,78 @@ def _decode_qkv(cfg: ArchConfig, p, x: torch.Tensor, pos):
     return pos, q, k, v
 
 
-def _write(cache: torch.Tensor, new: torch.Tensor,
-           pos: torch.Tensor) -> None:
+def _write(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
+           sp=None) -> None:
     """``cache[:, min(pos, S - 1)] = new`` in place (cache: (B, S, ...),
-    new: (B, 1, ...))."""
-    idx = torch.clamp_max(pos, cache.shape[1] - 1).reshape(1).long()
-    cache.index_copy_(1, idx, new.to(cache.dtype))
+    new: (B, 1, ...)).  With ``sp`` the cache is the rank's block of a
+    sequence ``sp.size`` times as long, and only the rank that owns the
+    position writes (the others write back what they hold)."""
+    S = cache.shape[1]
+    if sp is None:
+        idx = torch.clamp_max(pos, S - 1).reshape(1).long()
+        cache.index_copy_(1, idx, new.to(cache.dtype))
+        return
+    at = torch.clamp_max(pos, S * sp.size - 1) - sp.index * S
+    idx = at.clamp(0, S - 1).reshape(1).long()
+    mine = (at >= 0) & (at < S)
+    cache.index_copy_(1, idx, torch.where(mine, new.to(cache.dtype),
+                                          cache.index_select(1, idx)))
+
+
+def _valid(S: int, pos: torch.Tensor, sp, device) -> torch.Tensor:
+    """Which of the cache block's S positions are ``<= pos``."""
+    first = 0 if sp is None else sp.index * S
+    return torch.arange(first, first + S, device=device) <= pos
+
+
+def _attend(s: torch.Tensor, vals: torch.Tensor, spec: str, sp):
+    """``softmax(s) @ vals`` in ``vals``' dtype, the softmax over the
+    last axis of ``s`` (float32, masked) and ``spec`` the value product.
+    With ``sp`` the positions are the rank's block: its max, sum of
+    exponentials and weighted values are combined over the group."""
+    if sp is None:
+        w = torch.softmax(s, dim=-1)
+        return torch.einsum(spec, w.to(vals.dtype), vals)
+    top = shd.all_reduce_(s.amax(-1), sp.group, shd.reduce_op("max"))
+    e = torch.exp(s - top[..., None])
+    o = torch.einsum(spec, e.to(vals.dtype).float(), vals.float())
+    both = shd.all_reduce_(torch.cat([o, e.sum(-1)[..., None]], -1),
+                           sp.group)
+    return (both[..., :-1] / both[..., -1:]).to(vals.dtype)
+
+
+def _heads_out(o: torch.Tensor, wo: torch.Tensor, tp) -> torch.Tensor:
+    """(B, H, hd) values of every head -> (B, 1, D) through the rank's
+    ``wo`` head slice, summed over the model axis."""
+    if tp is not None:
+        n = wo.shape[0]
+        o = o[:, tp.index * n:(tp.index + 1) * n]
+    out = torch.einsum("bhk,hkd->bd", o, wo)[:, None, :]
+    return out if tp is None else shd.all_reduce_(out, tp.group)
 
 
 def gqa_decode(cfg: ArchConfig, p, x: torch.Tensor, pos,
-               k_cache: torch.Tensor, v_cache: torch.Tensor):
+               k_cache: torch.Tensor, v_cache: torch.Tensor, sp=None):
     """Single-token decode.  x: (B, 1, D); pos: 0-d int32, the position
-    being written; caches: (B, S_max, K, hd), updated in place.
-    Returns (out, k_cache, v_cache)."""
+    being written; caches: (B, S_max, K, hd), updated in place (with
+    ``sp``, the rank's block of the positions).  Returns (out, k_cache,
+    v_cache)."""
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // K
     B, S = k_cache.shape[0], k_cache.shape[1]
     pos, q, k, v = _decode_qkv(cfg, p, x, pos)
-    _write(k_cache, k, pos)
-    _write(v_cache, v, pos)
+    _write(k_cache, k, pos, sp)
+    _write(v_cache, v, pos, sp)
+    tp = shd.tp_group(H, q.shape[2])
+    if tp is not None:                 # every head reads the rank's block
+        q = shd.all_gather_dim(q, 2, tp.group)
 
     qg = q.reshape(B, K, G, hd)        # query head h reads kv head h // G
     s = torch.einsum("bkgd,bskd->bkgs", qg.float(),
                      k_cache.float()) * (hd ** -0.5)
-    valid = torch.arange(S, device=x.device) <= pos
-    s = torch.where(valid, s, _NEG)
-    w = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgs,bskd->bkgd", w.to(v_cache.dtype), v_cache)
-    out = torch.einsum("bhk,hkd->bd", o.reshape(B, H, hd),
-                       p["wo"])[:, None, :]
+    s = torch.where(_valid(S, pos, sp, x.device), s, _NEG)
+    o = _attend(s, v_cache, "bkgs,bskd->bkgd", sp)
+    out = _heads_out(o.reshape(B, H, hd), p["wo"], tp)
     return out.to(x.dtype), k_cache, v_cache
 
 
@@ -319,7 +400,14 @@ def quantize_kv(x: torch.Tensor):
 def gqa_decode_q8(cfg: ArchConfig, p, x: torch.Tensor, pos,
                   k_cache, v_cache, k_scale, v_scale):
     """gqa_decode against an int8-quantized cache: (B, S, K, hd) int8 +
-    (B, S, K) f32 scales, all updated in place."""
+    (B, S, K) f32 scales, all updated in place.  Not realised over a
+    model axis: a ``tp`` or ``sp`` group larger than 1 raises."""
+    rules = shd.active_rules()
+    if any(shd.logical_group(rules, a) is not None for a in ("tp", "sp")):
+        raise NotImplementedError(
+            "gqa_decode_q8 over a model axis larger than 1: the int8 KV "
+            "cache's tensor-parallel, sequence-sharded decode is not "
+            "realised")
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // K
     B, S = k_cache.shape[0], k_cache.shape[1]
@@ -367,12 +455,14 @@ def _mla_project(cfg: ArchConfig, p, x: torch.Tensor,
 
 def mla_forward(cfg: ArchConfig, p, x: torch.Tensor,
                 positions: torch.Tensor, *, kv_out: bool = False):
-    """Prefill MLA: up-project the latent and run flash with K == H.
-    Returns (out, (c_kv (B, S, r), k_rope (B, S, rope))) for the cache."""
+    """Prefill MLA: up-project the latent and run flash with K == H (the
+    rank's heads, when ``wq`` holds a slice of them: ``out`` is then its
+    partial sum).  Returns (out, (c_kv (B, S, r), k_rope (B, S, rope)))
+    for the cache."""
     q_nope, q_rope, c_kv, k_rope = _mla_project(cfg, p, x, positions)
     k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p["wuk"])
     v = torch.einsum("bsr,rhk->bshk", c_kv, p["wuv"])
-    k_rope_rep = k_rope.expand(-1, -1, cfg.n_heads, -1)
+    k_rope_rep = k_rope.expand(-1, -1, q_nope.shape[2], -1)
     q_cat = torch.cat([q_nope, q_rope], dim=-1)
     k_cat = torch.cat([k_nope, k_rope_rep], dim=-1)
     o = flash_attention(q_cat, k_cat, v, causal=True)
@@ -381,27 +471,36 @@ def mla_forward(cfg: ArchConfig, p, x: torch.Tensor,
 
 
 def mla_decode(cfg: ArchConfig, p, x: torch.Tensor, pos,
-               ckv_cache: torch.Tensor, krope_cache: torch.Tensor):
+               ckv_cache: torch.Tensor, krope_cache: torch.Tensor, sp=None):
     """Absorbed-weight MLA decode: scores and values in latent space.
     x: (B, 1, D); pos: 0-d int32; caches (B, S, r) and (B, S, rope),
-    updated in place.  Returns (out, ckv_cache, krope_cache)."""
+    updated in place (with ``sp``, the rank's block of the positions).
+    Returns (out, ckv_cache, krope_cache)."""
     m = cfg.mla
     B, S = x.shape[0], ckv_cache.shape[1]
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     q_nope, q_rope, c_kv, k_rope = _mla_project(cfg, p, x, pos.expand(B, 1))
-    _write(ckv_cache, c_kv, pos)
-    _write(krope_cache, k_rope[:, :, 0, :], pos)
+    _write(ckv_cache, c_kv, pos, sp)
+    _write(krope_cache, k_rope[:, :, 0, :], pos, sp)
 
     # absorb W_uk into q: (B, 1, H, dn) . (r, H, dn) -> (B, H, r)
     q_lat = torch.einsum("bshk,rhk->bhr", q_nope, p["wuk"])
+    q_rope = q_rope[:, 0]
+    tp = shd.tp_group(cfg.n_heads, q_lat.shape[1])
+    if tp is not None:                 # every head reads the rank's block
+        q_lat = shd.all_gather_dim(q_lat, 1, tp.group)
+        q_rope = shd.all_gather_dim(q_rope, 1, tp.group)
     scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
     s = (torch.einsum("bhr,bsr->bhs", q_lat.float(), ckv_cache.float())
-         + torch.einsum("bhp,bsp->bhs", q_rope[:, 0].float(),
+         + torch.einsum("bhp,bsp->bhs", q_rope.float(),
                         krope_cache.float())) * scale
-    valid = torch.arange(S, device=x.device) <= pos
-    s = torch.where(valid, s, _NEG)
-    w = torch.softmax(s, dim=-1)
-    o_lat = torch.einsum("bhs,bsr->bhr", w.to(ckv_cache.dtype), ckv_cache)
+    s = torch.where(_valid(S, pos, sp, x.device), s, _NEG)
+    o_lat = _attend(s, ckv_cache, "bhs,bsr->bhr", sp)
+    if tp is not None:
+        n = p["wuv"].shape[1]
+        o_lat = o_lat[:, tp.index * n:(tp.index + 1) * n]
     o = torch.einsum("bhr,rhk->bhk", o_lat, p["wuv"])
     out = torch.einsum("bhk,hkd->bd", o, p["wo"])[:, None, :]
+    if tp is not None:
+        out = shd.all_reduce_(out, tp.group)
     return out.to(x.dtype), ckv_cache, krope_cache

@@ -125,9 +125,30 @@ def apply_act(cfg: ArchConfig, h: torch.Tensor,
 
 
 def apply_mlp(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
+    """The MLP on whatever ``p`` holds: with ``w1`` / ``w3`` the rank's
+    d_ff columns and ``w2`` its rows, the output is the rank's partial
+    sum (:func:`tp_combine` adds the partials up)."""
     h = x @ p["w1"]
     gate = x @ p["w3"] if "w3" in p else None
     return apply_act(cfg, h, gate) @ p["w2"]
+
+
+def tp_combine(out: torch.Tensor, tp, seq) -> torch.Tensor:
+    """A layer's output back in the residual stream's layout.  ``tp``
+    (a ``sharding.AxisGroup`` or None): the layer ran on the rank's
+    slice of its heads or d_ff, so ``out`` is a partial sum over the
+    model axis.  ``seq``: the stream is cut on the sequence over that
+    axis (``act_seq``) and the layer ran on the gathered sequence.  So a
+    partial output is reduce-scattered back to the rank's sequence block
+    (``seq``) or all-reduced (no ``seq``); a whole one (no ``tp``) is cut
+    to the rank's block, or kept."""
+    from repro_torch.distributed import sharding as shd
+
+    if tp is not None:
+        if seq is not None:
+            return shd.reduce_scatter(out, 1, seq.group)
+        return shd.all_reduce(out, tp.group)
+    return shd.seq_slice(out, 1, seq)
 
 
 # --------------------------------------------------------------------------
@@ -153,23 +174,47 @@ def embed_tokens(p, tokens: torch.Tensor, dtype) -> torch.Tensor:
     return F.embedding(ids, p["tok"]).to(dtype)
 
 
-def _xent_chunk(h: torch.Tensor, head_f: torch.Tensor, lab: torch.Tensor):
-    """One chunk's (nll sum, z sum, count, correct) as 0-d float32."""
+def _xent_chunk(h: torch.Tensor, head_f: torch.Tensor, lab: torch.Tensor,
+                tp=None):
+    """One chunk's (nll sum, z sum, count, correct) as 0-d float32.
+    With ``tp`` (a ``sharding.AxisGroup``) ``head_f`` is the rank's slice
+    of the vocabulary, the ``tp.index``-th: the logsumexp's maximum
+    (detached) and its sum of exponentials, and the target logit, are
+    added up over the group, and the argmax is the group's, the lowest
+    index winning ties as ``argmax`` does."""
     logits = h.float() @ head_f                           # (B, c, V)
     lab = lab.long()
-    lse = torch.logsumexp(logits, dim=-1)                 # (B, c)
-    hit = torch.arange(logits.shape[-1],
+    v0 = 0 if tp is None else tp.index * logits.shape[-1]
+    hit = torch.arange(v0, v0 + logits.shape[-1],
                        device=logits.device) == lab[..., None]
     tgt = torch.where(hit, logits, 0.0).sum(-1)
+    if tp is None:
+        lse = torch.logsumexp(logits, dim=-1)             # (B, c)
+        pred = logits.argmax(-1)
+    else:
+        from repro_torch.distributed import sharding as shd
+
+        best, arg = logits.detach().max(-1)
+        top = shd.all_reduce_(best.clone(), tp.group, shd.reduce_op("max"))
+        sumexp = torch.exp(logits - top[..., None]).sum(-1)
+        lse = torch.log(shd.all_reduce(sumexp, tp.group)) + top
+        tgt = shd.all_reduce(tgt, tp.group)
+        # each rank's (max, its index): the first rank holding the
+        # largest value owns the lowest index among the equal maxima
+        pairs = shd.all_gather_dim(torch.stack([best, (arg + v0).float()]),
+                                   0, tp.group).reshape(tp.size, 2,
+                                                        *best.shape)
+        pred = pairs[:, 1].gather(0, pairs[:, 0].argmax(0)[None])[0].long()
     mask = (lab >= 0).float()
     return (((lse - tgt) * mask).sum(), (lse.square() * mask).sum(),
-            mask.sum(), ((logits.argmax(-1) == lab).float() * mask).sum())
+            mask.sum(), ((pred == lab).float() * mask).sum())
 
 
 def xent_sums(hidden: torch.Tensor, head: torch.Tensor,
-              labels: torch.Tensor, *, chunk: int = 1024):
+              labels: torch.Tensor, *, chunk: int = 1024, tp=None):
     """``chunked_softmax_xent``'s loop: (nll sum, z sum, count, correct)
-    as 0-d float32, the first two differentiable."""
+    as 0-d float32, the first two differentiable.  ``tp``: ``head`` is
+    the rank's vocabulary slice (``_xent_chunk``)."""
     B, S, D = hidden.shape
     n_chunks = max(S // chunk, 1)
     chunk = S // n_chunks
@@ -180,7 +225,7 @@ def xent_sums(hidden: torch.Tensor, head: torch.Tensor,
     loss_sum, z_sum, cnt, correct = zero, zero, zero, zero
     for c in range(n_chunks):
         nll, z, n, hit = checkpoint(_xent_chunk, hs[:, c], head_f, ls[:, c],
-                                    use_reentrant=False)
+                                    tp, use_reentrant=False)
         loss_sum, z_sum = loss_sum + nll, z_sum + z
         cnt, correct = cnt + n, correct + hit
     return loss_sum, z_sum, cnt, correct

@@ -6,30 +6,29 @@ dispatch), run through batched expert products, and combined back with
 their gates.  Dispatch is shard-local: under active ``MeshRules`` whose
 mesh has an axis larger than 1, ``moe_ffn`` takes the reference's
 sharded paths by strategy, each rank holding its local tokens and
-weight blocks (``sharding.local_shard``):
+weight blocks:
 
-  token path (fsdp / fsdp_dp / tp_dp / tp_sp) — the rank's tokens; the
-      expert weights all-gathered over the ``fsdp_expert`` axes
-      (ZeRO-3); if TP is on, the expert-F partials summed once over
-      ``tp`` at the end.
+  token path (fsdp / fsdp_dp / tp_dp / tp_sp) — the rank's tokens; if
+      the experts' F is split over the model axis (``w1`` / ``w3`` /
+      ``w2`` and the shared experts' hold the rank's F slice), the
+      partials, routed and shared together, all-reduced once at the end.
   megatron path (megatron_sp) — the residual stream sequence-sharded
-      over ``tp``: the sequence all-gathered once, every tp rank routing
-      the same tokens with its F-shard, the output reduce-scattered back
-      on the sequence.
+      over the model axis: the sequence all-gathered once, every model
+      rank routing the same tokens with its F slice, the output
+      reduce-scattered back on the sequence.
 
-Each body computes ``C`` from the rank's own token count, as the
-reference does inside its ``shard_map``, and averages ``aux`` and
-``zloss`` over the fsdp group.  The collectives run through
-``torch.distributed`` on ``sharding.axes_group``; they carry no
-autograd, so these bodies run forward only.  Training takes the token
-path under FSDP execution: there the block's weights arrive whole,
-gathered at use with an autograd (``sharding.gathered``), and
-``moe_ffn`` runs ``_moe_math`` on the rank's own tokens, ``C`` from
-their count, returning the rank's own ``aux + zloss``, which the loss
-averages over the ranks (``layers.sharded_objective``); the megatron
-body and a ``tp`` group larger than 1 still raise under autograd.  When
-every mesh axis has size 1, or no rules are active, ``moe_ffn`` is
-``_moe_math`` on the whole input.
+The weights' storage blocks (``fsdp_expert``) are gathered through
+``sharding.GatherParam``, or arrive gathered already inside
+``sharding.gathered`` (the train step and serving on a sharded model);
+the token collectives are ``sharding``'s autograd collectives, so both
+bodies train.  Each body computes ``C`` from the rank's own token
+count, as the reference does inside its ``shard_map``.  ``aux`` and
+``zloss`` are the mean over the ``fsdp_expert`` group where the body
+gathers its weights itself; inside ``gathered`` each rank returns its
+own, which the loss averages over the ranks
+(``layers.sharded_objective``), the same mean.  When every mesh axis
+has size 1, or no rules are active, ``moe_ffn`` is ``_moe_math`` on the
+whole input.
 
 Where the port has to choose, it chooses the reference's numbers:
 
@@ -56,13 +55,12 @@ Where the port has to choose, it chooses the reference's numbers:
 from __future__ import annotations
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed import sharding as shd
-from repro_torch.models.layers import _param
+from repro_torch.models.layers import _param, tp_combine
 
 
 def init_moe(cfg: ArchConfig, device=None) -> nn.ParameterDict:
@@ -165,70 +163,45 @@ def _moe_math(cfg: ArchConfig, x: torch.Tensor, router, w1, w3, w2,
 
 
 def _group_mean(x: torch.Tensor, group) -> torch.Tensor:
-    x = x.clone()
-    dist.all_reduce(x, group=group)
-    return x / dist.get_world_size(group)
+    if group is None:
+        return x
+    return shd.all_reduce(x, group.group) / group.size
 
 
-def _gather_weights(fsdp_group, router, w1, w3, w2, shared):
-    """ZeRO-3: reassemble the expert weights' storage shards (the TP dim,
-    if any, stays sharded: it is contracted and summed over tp)."""
-    if fsdp_group is not None:
-        w1 = shd.all_gather_dim(w1, 1, fsdp_group)
-        w3 = shd.all_gather_dim(w3, 1, fsdp_group)
-        w2 = shd.all_gather_dim(w2, 2, fsdp_group)
-        if shared:
-            sw1, sw3, sw2 = shared
-            shared = (shd.all_gather_dim(sw1, 0, fsdp_group),
-                      shd.all_gather_dim(sw3, 0, fsdp_group),
-                      shd.all_gather_dim(sw2, 1, fsdp_group))
-    return router, w1, w3, w2, shared
+# logical specs of the expert weights (the reference's ``init_moe``)
+SPECS = {"router": (None, None), "w1": (None, "fsdp_expert", "tp"),
+         "w3": (None, "fsdp_expert", "tp"), "w2": (None, "tp", "fsdp_expert"),
+         "sw1": ("fsdp_expert", "tp"), "sw3": ("fsdp_expert", "tp"),
+         "sw2": ("tp", "fsdp_expert")}
 
 
-def _token_body(cfg, fsdp_group, tp_group, x, router, w1, w3, w2, shared):
+def _gather_storage(cfg: ArchConfig, p, rules) -> dict:
+    """ZeRO-3: each weight's storage block gathered (``GatherParam``,
+    with autograd); the F dimension, if split over the model axis,
+    stays the rank's slice."""
+    whole = init_moe(cfg, device="meta")
+    return {k: shd.GatherParam.apply(
+        w, shd.param_layout(rules, SPECS[k], whole[k].shape), rules.mesh)
+        for k, w in p.items()}
+
+
+def _token_body(cfg, tp, x, router, w1, w3, w2, shared):
     """Per-rank MoE over the rank's tokens.  x: (T_local, D)."""
-    router, w1, w3, w2, shared = _gather_weights(fsdp_group, router, w1,
-                                                 w3, w2, shared)
     out, aux, zloss = _moe_math(cfg, x, router, w1, w3, w2, shared)
-    if fsdp_group is not None:
-        aux, zloss = _group_mean(aux, fsdp_group), _group_mean(zloss,
-                                                               fsdp_group)
-    if tp_group is not None:   # TP partials, routed + shared, summed once
-        dist.all_reduce(out, group=tp_group)
+    if tp is not None:   # TP partials, routed + shared, summed once
+        out = shd.all_reduce(out, tp.group)
     return out, aux, zloss
 
 
-def _megatron_body(cfg, fsdp_group, tp_group, x, router, w1, w3, w2,
-                   shared):
+def _megatron_body(cfg, tp, seq, x, router, w1, w3, w2, shared):
     """Sequence-sharded residual stream: one all-gather, one
-    reduce-scatter.  x: (B_local, S_local, D), S sharded over tp."""
+    reduce-scatter.  x: (B_local, S_local, D), S cut over ``seq``."""
     B, _, D = x.shape
-    x_full = x if tp_group is None else shd.all_gather_dim(x, 1, tp_group)
+    x_full = shd.all_gather(x, 1, None if seq is None else seq.group)
     S = x_full.shape[1]
-    router, w1, w3, w2, shared = _gather_weights(fsdp_group, router, w1,
-                                                 w3, w2, shared)
     out, aux, zloss = _moe_math(cfg, x_full.reshape(B * S, D), router,
                                 w1, w3, w2, shared)
-    if fsdp_group is not None:
-        aux, zloss = _group_mean(aux, fsdp_group), _group_mean(zloss,
-                                                               fsdp_group)
-    out = out.reshape(B, S, D)
-    if tp_group is not None:
-        n = dist.get_world_size(tp_group)
-        local = torch.empty_like(x)
-        dist.reduce_scatter(local, [c.contiguous()
-                                    for c in out.chunk(n, dim=1)],
-                            group=tp_group)
-        out = local
-    return out, aux, zloss
-
-
-def _group(rules, axes):
-    """The process group over ``axes``, or None where they span one
-    rank (the reference's collectives are then the identity)."""
-    if shd.axes_size(rules.mesh, axes) == 1:
-        return None
-    return shd.axes_group(rules.mesh, axes)
+    return tp_combine(out.reshape(B, S, D), tp, seq), aux, zloss
 
 
 def moe_ffn(cfg: ArchConfig, p, x: torch.Tensor):
@@ -236,29 +209,25 @@ def moe_ffn(cfg: ArchConfig, p, x: torch.Tensor):
     a mesh with an axis larger than 1, ``x`` and ``p`` are the rank's
     local blocks and so is the output."""
     B, S, D = x.shape
-    shared = tuple(p[k] for k in ("sw1", "sw3", "sw2") if k in p) or None
-    weights = (p["router"], p["w1"], p["w3"], p["w2"], shared)
     rules = shd.active_rules()
     if rules is None or all(n == 1 for n in
                             shd.mesh_sizes(rules.mesh).values()):
-        out, aux, zloss = _moe_math(cfg, x.reshape(B * S, D), *weights)
+        shared = tuple(p[k] for k in ("sw1", "sw3", "sw2") if k in p) or None
+        out, aux, zloss = _moe_math(cfg, x.reshape(B * S, D), p["router"],
+                                    p["w1"], p["w3"], p["w2"], shared)
         return out.reshape(B, S, D).to(x.dtype), aux + zloss
-    t = rules.table
-    tp_wide = shd.axes_size(rules.mesh, t["tp"]) > 1
-    if shd.in_gathered() and not tp_wide:
-        # FSDP execution: whole weights, the rank's tokens, its own aux
-        out, aux, zloss = _moe_math(cfg, x.reshape(B * S, D), *weights)
-        return out.reshape(B, S, D).to(x.dtype), aux + zloss
-
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, *weights[:4], *(shared or ()))):
-        raise NotImplementedError(
-            "the sharded MoE bodies run forward only: their collectives "
-            "carry no autograd")
-    fsdp, tp = _group(rules, t["fsdp_expert"]), _group(rules, t["tp"])
+    own = shd.in_gathered()
+    w = dict(p.items()) if own else _gather_storage(cfg, p, rules)
+    shared = tuple(w[k] for k in ("sw1", "sw3", "sw2") if k in w) or None
+    weights = (w["router"], w["w1"], w["w3"], w["w2"], shared)
+    tp = shd.tp_group(cfg.moe.d_ff_expert, w["w1"].shape[2])
     if rules.strategy == "megatron_sp":
-        out, aux, zloss = _megatron_body(cfg, fsdp, tp, x, *weights)
-        return out.to(x.dtype), aux + zloss
-    out, aux, zloss = _token_body(cfg, fsdp, tp, x.reshape(B * S, D),
-                                  *weights)
+        out, aux, zloss = _megatron_body(
+            cfg, tp, shd.logical_group(rules, "act_seq"), x, *weights)
+    else:
+        out, aux, zloss = _token_body(cfg, tp, x.reshape(B * S, D),
+                                      *weights)
+    if not own:
+        fsdp = shd.logical_group(rules, "fsdp_expert")
+        aux, zloss = _group_mean(aux, fsdp), _group_mean(zloss, fsdp)
     return out.reshape(B, S, D).to(x.dtype), aux + zloss

@@ -64,7 +64,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.sharding import gathered, hint, is_sharded
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.sharding import gathered, is_sharded
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (
     apply_mlp,
@@ -76,8 +77,10 @@ from repro_torch.models.layers import (
     init_mlp,
     init_norm,
     sharded_objective,
+    tp_combine,
     xent_sums,
 )
+from repro_torch.models.moe import SPECS as MOE_SPECS
 from repro_torch.models.moe import init_moe, moe_ffn
 
 # int8 KV cache for GQA decode (per-(token, kv-head) symmetric scales)
@@ -97,12 +100,7 @@ PARAM_SPECS = {
     ("attn", "wuv"): (None, "tp", None),
     ("mlp", "w1"): ("fsdp", "tp"), ("mlp", "w3"): ("fsdp", "tp"),
     ("mlp", "w2"): ("tp", "fsdp"),
-    ("moe", "router"): (None, None),
-    ("moe", "w1"): (None, "fsdp_expert", "tp"),
-    ("moe", "w3"): (None, "fsdp_expert", "tp"),
-    ("moe", "w2"): (None, "tp", "fsdp_expert"),
-    ("moe", "sw1"): ("fsdp_expert", "tp"), ("moe", "sw3"): ("fsdp_expert", "tp"),
-    ("moe", "sw2"): ("tp", "fsdp_expert"),
+    **{("moe", k): spec for k, spec in MOE_SPECS.items()},
 }
 BLOCK_PARTS = ("ln1", "ln2", "attn", "mlp", "moe")
 
@@ -175,6 +173,7 @@ class LanguageModel(nn.Module):
 
     SPECS: dict = {}                 # (part, leaf) -> logical-axis spec
     CONSTANTS: dict[str, float] = {}  # leaves initialised to a constant
+    TENSOR_PARALLEL = False           # layers realise a ``tp`` split
 
     def __init__(self, cfg: ArchConfig, remat: str, device):
         super().__init__()
@@ -202,21 +201,34 @@ class LanguageModel(nn.Module):
         reference's tree layout (``reference_path``)."""
         return reference_abstract(self, self.SPECS)
 
-    def _positions(self, h: torch.Tensor) -> torch.Tensor:
-        B, S = h.shape[0], h.shape[1]
+    def _positions(self, h: torch.Tensor, ways: int = 1) -> torch.Tensor:
+        """Positions of the whole sequence, ``ways`` times ``h``'s."""
+        B, S = h.shape[0], h.shape[1] * ways
         return torch.arange(S, dtype=torch.int32,
                             device=h.device).expand(B, S)
+
+    @staticmethod
+    def _seq():
+        """The ``act_seq`` group of the active rules: the residual
+        stream is cut on the sequence over it (None: whole)."""
+        return shd.logical_group(shd.active_rules(), "act_seq")
 
     def _objective(self, h: torch.Tensor, labels: torch.Tensor,
                    aux: torch.Tensor):
         """(loss, metrics) of the last hidden state: final norm, chunked
         cross entropy and the router loss ``aux``; under FSDP execution
-        the rank's share (``layers.sharded_objective``)."""
+        the rank's share (``layers.sharded_objective``), the sequence
+        gathered first where it is cut, the head vocabulary-parallel
+        where it is split."""
         with gathered(self.final_norm), gathered(self.embed, "head"):
             h = apply_norm(self.cfg, self.final_norm, h)
             if is_sharded(self.embed["tok"]):
+                seq = self._seq()
+                h = shd.all_gather(h, 1, seq and seq.group)
+                head = self.embed["head"]
+                tp = shd.tp_group(self.cfg.vocab_size, head.shape[1])
                 return sharded_objective(
-                    xent_sums(h, self.embed["head"], labels), aux)
+                    xent_sums(h, head, labels, tp=tp), aux)
             loss, metrics = chunked_softmax_xent(h, self.embed["head"],
                                                  labels)
         metrics["aux_loss"] = aux
@@ -238,6 +250,7 @@ class TransformerLM(LanguageModel):
     (patch + text)."""
 
     SPECS = PARAM_SPECS
+    TENSOR_PARALLEL = True
 
     def __init__(self, cfg: ArchConfig, remat: str = "full",
                  device="cuda"):
@@ -270,24 +283,34 @@ class TransformerLM(LanguageModel):
             h = torch.cat([patches, text], dim=1)
         else:
             h = embed_tokens(self.embed, batch["tokens"], cfg.compute_dtype)
-        return hint(h, "dp", "act_seq", None)
+        return shd.seq_slice(h, 1, self._seq())
 
     # ------------------------------------------------------------ blocks
     def _block_fwd(self, blk: Block, h, positions, kv_out: bool = False):
-        """(h, aux (0-d float32), kv)."""
+        """(h, aux (0-d float32), kv).  ``h`` is the rank's block of the
+        sequence where the stream is cut (``act_seq``): gathered once
+        before attention, as the reference's hint re-gathers it."""
         cfg = self.cfg
-        a_in = hint(apply_norm(cfg, blk.ln1, h), "dp", None, None)
+        seq = self._seq()
+        a_in = shd.all_gather(apply_norm(cfg, blk.ln1, h), 1,
+                              seq and seq.group)
         forward = attn.mla_forward if cfg.attention == "mla" \
             else attn.gqa_forward
         a_out, kv = forward(cfg, blk.attn, a_in, positions, kv_out=kv_out)
-        h = hint(h + a_out, "dp", "act_seq", None)
-        f_out, aux = self._ffn(blk, apply_norm(cfg, blk.ln2, h))
-        return hint(h + f_out, "dp", "act_seq", None), aux, kv
+        tp = shd.tp_group(cfg.n_heads, blk.attn["wq"].shape[1])
+        h = h + tp_combine(a_out, tp, seq)
+        f_out, aux = self._ffn(blk, apply_norm(cfg, blk.ln2, h), seq)
+        return h + f_out, aux, kv
 
-    def _ffn(self, blk: Block, x):
+    def _ffn(self, blk: Block, x, seq=None):
+        """(out, aux) of the block's MLP or mixture of experts; ``seq``:
+        ``x`` is the rank's block of a sequence cut over that group."""
         if hasattr(blk, "moe"):
             return moe_ffn(self.cfg, blk.moe, x)
-        return apply_mlp(self.cfg, blk.mlp, x), torch.zeros(
+        tp = shd.tp_group(self.cfg.d_ff, blk.mlp["w1"].shape[1])
+        out = apply_mlp(self.cfg, blk.mlp,
+                        shd.all_gather(x, 1, seq and seq.group))
+        return tp_combine(out, tp, seq), torch.zeros(
             (), dtype=torch.float32, device=x.device)
 
     # ------------------------------------------------------------ train
@@ -298,7 +321,8 @@ class TransformerLM(LanguageModel):
     def loss(self, batch):
         with gathered(self.embed, "tok"):
             h = self._embed(batch)
-        positions = self._positions(h)
+        seq = self._seq()
+        positions = self._positions(h, 1 if seq is None else seq.size)
         aux0 = torch.zeros((), dtype=torch.float32, device=h.device)
         for blk in self.pre_blocks:
             h, a = self._train_block(blk, h, positions)
@@ -340,25 +364,84 @@ class TransformerLM(LanguageModel):
         specs["pos"] = ()
         return cache, specs
 
-    def prefill(self, batch):
-        """Process a full prompt; returns (last-token logits, cache)."""
+    # ------------------------------------------------ serving under rules
+    @staticmethod
+    def _serve_groups(batch: int):
+        """(dp, sp) groups of a serving batch of ``batch`` sequences: the
+        batch cut over "dp" and the cache's sequence over "sp", or, for
+        one sequence, the batch whole and the sequence over every axis
+        (the reference's ``abstract_cache`` specs)."""
+        rules = shd.active_rules()
+        if batch == 1:
+            return None, shd.logical_group(rules, "all")
+        return (shd.logical_group(rules, "dp"),
+                shd.logical_group(rules, "sp"))
+
+    @staticmethod
+    def _rank_batch(batch: dict) -> dict:
+        """This rank's block of a whole serving batch over "dp"."""
+        rules = shd.active_rules()
+        if rules is None:
+            return batch
+        from repro_torch.models.inputs import shard_batch
+        return shard_batch(batch, rules)
+
+    def _serve_logits(self, h: torch.Tensor, dp) -> torch.Tensor:
+        """The last position's logits, whole (B, V) on every rank: the
+        sequence gathered where it is cut, the vocabulary slices and the
+        batch blocks all-gathered."""
+        seq = self._seq()
+        h = shd.all_gather(h, 1, seq and seq.group)
+        with gathered(self.final_norm), gathered(self.embed, "head"):
+            logits = self._logits(h)
+            tp = shd.tp_group(self.cfg.vocab_size,
+                              self.embed["head"].shape[1])
+        if tp is not None:
+            logits = shd.all_gather_dim(logits, 1, tp.group)
+        if dp is not None:
+            logits = shd.all_gather_dim(logits, 0, dp.group)
+        return logits
+
+    def prefill(self, batch, max_seq: int | None = None):
+        """Process a full prompt; returns (last-token logits, cache), the
+        cache ``max_seq`` positions long (default: the prompt's), zeros
+        past the prompt.  Under active rules ``batch`` is the whole
+        batch; the cache is the rank's block and the logits whole
+        (``_serve_groups``)."""
         cfg = self.cfg
-        h = self._embed(batch)
-        B, S = h.shape[0], h.shape[1]
-        positions = self._positions(h)
+        B = next(iter(batch.values())).shape[0]
+        dp, sp = self._serve_groups(B)
+        batch = self._rank_batch(batch)
+        with gathered(self.embed, "tok"):
+            h = self._embed(batch)
+        seq = self._seq()
+        positions = self._positions(h, 1 if seq is None else seq.size)
+        S = positions.shape[1]
+        n, at = (1, 0) if sp is None else (sp.size, sp.index)
+        total = max_seq or S
+        if total < S or total % n:
+            raise ValueError(f"a cache of {total} positions for a prompt of "
+                             f"{S} in {n} blocks")
+        S_loc = total // n
+        lo, hi = at * S_loc, min((at + 1) * S_loc, S)   # the prompt's part
         mla = cfg.attention == "mla"
         if mla:
             m = cfg.mla
             tails = ((m.kv_lora_rank,), (m.qk_rope_head_dim,))
         else:
             tails = ((cfg.n_kv_heads, cfg.head_dim),) * 2
-        c1, c2 = (torch.empty((cfg.n_layers, B, S, *t),
-                              dtype=cfg.compute_dtype, device=h.device)
+        alloc = torch.zeros if S_loc * (at + 1) > S else torch.empty
+        c1, c2 = (alloc((cfg.n_layers, h.shape[0], S_loc, *t),
+                        dtype=cfg.compute_dtype, device=h.device)
                   for t in tails)
         for i, blk in enumerate(self.layers()):
-            h, _, (a, b) = self._block_fwd(blk, h, positions, kv_out=True)
-            c1[i], c2[i] = a, b
-        logits = self._logits(h)
+            with gathered(blk):
+                h, _, (a, b) = self._block_fwd(blk, h, positions,
+                                               kv_out=True)
+            if hi > lo:
+                c1[i, :, :hi - lo], c2[i, :, :hi - lo] = a[:, lo:hi], \
+                    b[:, lo:hi]
+        logits = self._serve_logits(h, dp)
         if mla:
             cache = {"ckv": c1, "krope": c2}
         elif KV_CACHE_QUANT:
@@ -368,38 +451,46 @@ class TransformerLM(LanguageModel):
                      "v_scale": v_scale}
         else:
             cache = {"k": c1, "v": c2}
-        cache = {k: hint(v, None, "dp" if B > 1 else None,
-                         "sp" if B > 1 else "all", *([None] * (v.ndim - 3)))
-                 for k, v in cache.items()}
         cache["pos"] = torch.tensor(S, dtype=torch.int32, device=h.device)
         return logits, cache
 
     def decode_step(self, tokens: torch.Tensor, cache: dict):
         """tokens: (B, 1) int32.  Returns (logits (B, V), cache), the
-        cache's entries written in place."""
+        cache's entries written in place.  Under active rules ``tokens``
+        are the whole batch's and ``cache`` the rank's block."""
         cfg = self.cfg
         pos = cache["pos"]
         quant = KV_CACHE_QUANT and cfg.attention == "gqa"
         if quant and len(self.pre_blocks):
             raise AssertionError("q8 decode: no pre-block GQA archs")
-        h = embed_tokens(self.embed, tokens, cfg.compute_dtype)
+        dp, sp = self._serve_groups(tokens.shape[0])
+        tokens = self._rank_batch({"tokens": tokens})["tokens"]
+        with gathered(self.embed, "tok"):
+            h = embed_tokens(self.embed, tokens, cfg.compute_dtype)
         for i, blk in enumerate(self.layers()):
-            a_in = apply_norm(cfg, blk.ln1, h)
-            if cfg.attention == "mla":
-                a_out = attn.mla_decode(cfg, blk.attn, a_in, pos,
-                                        cache["ckv"][i], cache["krope"][i])[0]
-            elif quant:
-                a_out = attn.gqa_decode_q8(
-                    cfg, blk.attn, a_in, pos, cache["k"][i], cache["v"][i],
-                    cache["k_scale"][i], cache["v_scale"][i])[0]
-            else:
-                a_out = attn.gqa_decode(cfg, blk.attn, a_in, pos,
-                                        cache["k"][i], cache["v"][i])[0]
-            h = h + a_out
-            h = h + self._ffn(blk, apply_norm(cfg, blk.ln2, h))[0]
+            with gathered(blk):
+                h = self._decode_block(blk, h, pos, cache, i, quant, sp)
         new_cache = {k: v for k, v in cache.items() if k != "pos"}
         new_cache["pos"] = pos + 1
-        return self._logits(h), new_cache
+        return self._serve_logits(h, dp), new_cache
+
+    def _decode_block(self, blk: Block, h, pos, cache: dict, i: int,
+                      quant: bool, sp):
+        cfg = self.cfg
+        a_in = apply_norm(cfg, blk.ln1, h)
+        if cfg.attention == "mla":
+            a_out = attn.mla_decode(cfg, blk.attn, a_in, pos,
+                                    cache["ckv"][i], cache["krope"][i],
+                                    sp=sp)[0]
+        elif quant:
+            a_out = attn.gqa_decode_q8(
+                cfg, blk.attn, a_in, pos, cache["k"][i], cache["v"][i],
+                cache["k_scale"][i], cache["v_scale"][i])[0]
+        else:
+            a_out = attn.gqa_decode(cfg, blk.attn, a_in, pos,
+                                    cache["k"][i], cache["v"][i], sp=sp)[0]
+        h = h + a_out
+        return h + self._ffn(blk, apply_norm(cfg, blk.ln2, h))[0]
 
 
 # --------------------------------------------------------------------------

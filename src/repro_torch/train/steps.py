@@ -14,7 +14,12 @@ fitted (``sharding.fit_spec``); ``make_train_step``'s step, called under
 ``sharding.use_rules(rules)`` with the rank's block of the batch
 (``models.inputs.shard_batch``), gathers each block's weights at use,
 reduce-scatters the gradients back to the blocks and updates them
-there; its metrics are the reference's, equal on every rank.
+there; its metrics are the reference's, equal on every rank.  A spec
+may cut a parameter on a ``tp`` dimension as well (``megatron_sp``,
+``tp_dp``): that slice is never gathered, the layers run on it
+(``models.transformer``), and a model without tensor-parallel layers
+(``TENSOR_PARALLEL`` False: the recurrent families) raises there.
+``shard_params`` cuts the parameters alone, for serving (``tp_sp``).
 """
 
 from __future__ import annotations
@@ -64,7 +69,11 @@ def make_train_step(model, opt_cfg: OptConfig, *, microbatches: int = 1):
 
     def grad_fn(params: dict, batch: dict):
         loss, metrics = model.loss(batch)
-        grads = torch.autograd.grad(loss, list(params.values()))
+        # a parameter the batch does not reach (the audio family's token
+        # embedding) has a zero gradient, as ``jax.grad`` gives it
+        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(
+            torch.autograd.grad(loss, list(params.values()),
+                                allow_unused=True), params.values())]
         metrics = {k: v.detach() for k, v in metrics.items()}
         return metrics.pop("loss", loss.detach()), metrics, dict(
             zip(params, grads))
@@ -120,27 +129,42 @@ def param_specs(model) -> dict[str, tuple]:
 
 
 @torch.no_grad()
+def shard_params(model, rules: shd.MeshRules) -> dict:
+    """Each parameter of ``model`` cut in place to this rank's block of
+    its fitted spec under ``rules`` (it keeps its object, holding its
+    block, marked with its logical spec and whole shape: ``sharding.
+    mark_sharded``); returns ``{name: sharding}``, each block's
+    ``Sharding``.  A spec the model cannot realise raises
+    (``sharding.param_layout``): a ``tp`` dimension on an axis larger
+    than 1 for a model whose ``TENSOR_PARALLEL`` is False.  Every rank
+    calls it together: it makes the process groups the model will use."""
+    specs = param_specs(model)
+    tp = getattr(model, "TENSOR_PARALLEL", False)
+    params = dict(model.named_parameters())
+    layouts = {name: shd.param_layout(rules, specs[name], p.shape, tp=tp)
+               for name, p in params.items()}    # every refusal first
+    cuts = {}
+    for name, p in params.items():
+        for axes in (layouts[name].axes, layouts[name].rest):
+            if axes:
+                shd.axes_group(rules.mesh, axes)
+        cuts[name] = rules.named(shd.fitted(rules, specs[name], p.shape))
+        shd.mark_sharded(p, specs[name], p.shape, tp)
+        p.data = shd.local_shard(p.data, cuts[name]).clone()
+        shd.norm_group(p, rules)
+    shd.objective_group(rules)
+    return cuts
+
+
+@torch.no_grad()
 def shard_train_state(model, state: dict, rules: shd.MeshRules) -> dict:
     """FSDP: ``state``'s parameters (the model's own) and moments cut to
     this rank's blocks of their fitted specs under ``rules``, in place
-    (each parameter keeps its object, holding its block and marked with
-    its logical spec and whole shape: ``sharding.mark_sharded``); the
-    whole tensors are freed.  A spec FSDP cannot realise raises
-    (``sharding.param_layout``).  Every rank calls it together: it makes
-    the process groups the step will use."""
-    specs = param_specs(model)
+    (``shard_params``); the whole tensors are freed."""
     opt = state["opt"]
-    for name, p in state["params"].items():
-        layout = shd.param_layout(rules, specs[name], p.shape)
-        for axes in (layout.axes, layout.rest):
-            if axes:
-                shd.axes_group(rules.mesh, axes)
-        sharding = rules.named(shd.fitted(rules, specs[name], p.shape))
-        shd.mark_sharded(p, specs[name], p.shape)
-        p.data = shd.local_shard(p.data, sharding).clone()
+    for name, sharding in shard_params(model, rules).items():
         for moments in (opt["m"], opt["v"]):
             moments[name] = shd.local_shard(moments[name], sharding).clone()
-    shd.objective_group(rules)
     return state
 
 

@@ -316,20 +316,44 @@ def test_grad_sync_is_the_identity_without_a_pod_axis():
     ((2, 2), ("data", "model"), "no 'pod' axis")])
 def test_compressed_train_step_refuses_what_it_cannot_run(shape, names,
                                                           match):
+    """On a model axis of 2 the step runs the attention families' tensor-
+    parallel layers (``tests/test_torch_tp.py``); it refuses a recurrent
+    model there, and a replicated state, which would quietly replicate
+    the layers; a mesh without a pod axis is refused as before."""
+    from repro_torch.models.archs import build_model
+    from repro_torch.train.optimizer import OptConfig
     rules = shd.MeshRules(_NamedMesh(shape, names, (0,) * len(shape)))
-    with pytest.raises(ValueError, match=match):
-        pt_comp.make_compressed_train_step(None, None, rules)
+    rwkv = build_model(get_config("rwkv6_3b", smoke=True), device="cpu")
+    exc = NotImplementedError if match == "tensor-parallel" else ValueError
+    with pytest.raises(exc, match=match):
+        pt_comp.make_compressed_train_step(rwkv, None, rules)
+    if exc is ValueError:
+        return
+    yi = build_model(get_config("yi_9b", smoke=True), device="cpu")
+    step = pt_comp.make_compressed_train_step(yi, OptConfig(), rules)
+    state = pt_comp.init_compressed_state(
+        {"params": dict(yi.named_parameters())})
+    with pytest.raises(ValueError, match="shard_train_state"):
+        step(state, {})
 
 
 def test_sharded_moe_refuses_autograd():
-    from repro_torch.models import moe
-    cfg = get_config("deepseek_v2_lite_16b", smoke=True)
-    p = moe.init_moe(cfg, device="cpu")
-    x = torch.zeros((2, 4, cfg.d_model))
-    with shd.use_rules(shd.MeshRules(_NamedMesh((2,), ("data",), (0,)),
-                                     strategy="fsdp")):
-        with pytest.raises(NotImplementedError, match="forward only"):
-            moe.moe_ffn(cfg, p, x)
+    """The sharded MoE bodies now train (their collectives carry their
+    adjoints); what still refuses over a model axis of 2 is the int8 KV
+    cache's decode, which neither splits its heads nor combines a
+    sequence-sharded softmax."""
+    from repro_torch.models import attention as attn
+    cfg = get_config("yi_9b", smoke=True)
+    p = attn.init_attention(cfg, device="cpu")
+    B, S, K, hd = 2, 8, cfg.n_kv_heads, cfg.head_dim
+    caches = (torch.zeros((B, S, K, hd), dtype=torch.int8),) * 2 + (
+        torch.ones((B, S, K)),) * 2
+    x = torch.zeros((B, 1, cfg.d_model))
+    rules = shd.MeshRules(_NamedMesh((2, 2), ("data", "model"), (0, 1)),
+                          strategy="tp_sp")
+    with shd.use_rules(rules):
+        with pytest.raises(NotImplementedError, match="model axis"):
+            attn.gqa_decode_q8(cfg, p, x, 0, *caches)
 
 
 # ============================================= 1. the pod all-reduce

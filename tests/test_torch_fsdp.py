@@ -409,33 +409,43 @@ def _fake_rules(shape, names, strategy, coord=None):
 
 @pytest.mark.parametrize("strategy", ["megatron_sp", "tp_sp", "tp_dp"])
 def test_fsdp_refuses_tensor_parallel_specs(strategy):
-    """A ``tp`` entry on a model axis of 2 cannot be realised by FSDP:
-    the layout raises, and so does sharding a state; nothing falls back
-    to replicated weights."""
+    """A ``tp`` entry on a model axis of 2 is realised for the attention
+    families (the layer runs on the rank's slice: ``tests/
+    test_torch_tp.py``), not for the recurrent families: their layouts
+    and states raise; nothing falls back to replicated weights."""
     rules = _fake_rules((2, 2), MESH2, strategy)
+    layout = shd.param_layout(rules, ("fsdp", "tp"), (8, 8))
+    assert (layout.tp_dim, layout.tp_axes) == (1, ("model",))
+    assert shd.block_shape(layout, rules.mesh) == (4, 4)
     with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        shd.param_layout(rules, ("fsdp", "tp"), (8, 8))
-    model = build_model(get_config("yi_9b", smoke=True), device="cpu")
-    state = pt_steps.init_train_state(model, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        pt_steps.shard_train_state(model, state, rules)
+        shd.param_layout(rules, ("fsdp", "tp"), (8, 8), tp=False)
+    for arch in ("rwkv6_3b", "zamba2_2p7b"):
+        model = build_model(get_config(arch, smoke=True), device="cpu")
+        assert not model.TENSOR_PARALLEL
+        state = pt_steps.init_train_state(model,
+                                          torch.Generator().manual_seed(0))
+        with pytest.raises(NotImplementedError, match="tensor-parallel"):
+            pt_steps.shard_train_state(model, state, rules)
+        assert not any(shd.is_sharded(p) for p in model.parameters())
 
 
-def test_megatron_moe_body_still_refuses_autograd():
-    """Under FSDP execution (weights gathered) the megatron strategy's
-    MoE body, whose ``tp`` group is larger than 1, still raises."""
-    from repro_torch.models import moe
+def test_megatron_moe_body_still_refuses_autograd(monkeypatch):
+    """The megatron MoE body now trains (``tests/test_torch_tp.py`` holds
+    deepseek_v2_lite_16b's step against the reference's); what still
+    refuses under ``megatron_sp`` on a model axis of 2 is the int8 KV
+    cache's decode, here through grok1_314b's MoE blocks."""
+    from repro_torch.models import transformer as pt_tr
 
-    cfg = get_config("deepseek_v2_lite_16b", smoke=True)
-    rules = _fake_rules((2, 2), MESH2, "megatron_sp")
-    holder = torch.nn.ParameterDict({"scale": torch.nn.Parameter(
-        torch.ones(cfg.d_model))})
-    shd.mark_sharded(holder["scale"], (None,), (cfg.d_model,))
-    p = moe.init_moe(cfg, device="cpu")
-    with shd.use_rules(rules), shd.gathered(holder):
-        assert shd.in_gathered()
-        with pytest.raises(NotImplementedError, match="forward only"):
-            moe.moe_ffn(cfg, p, torch.zeros((2, 4, cfg.d_model)))
+    monkeypatch.setattr(pt_tr, "KV_CACHE_QUANT", True)
+    cfg = get_config("grok1_314b", smoke=True)
+    model = build_model(cfg, device="cpu")
+    assert model.TENSOR_PARALLEL and hasattr(model.blocks[0], "moe")
+    cache = model.init_cache(2, 8)
+    assert cache["k"].dtype == torch.int8
+    rules = _fake_rules((2, 2), MESH2, "megatron_sp", (1, 0))
+    with shd.use_rules(rules), torch.no_grad():
+        with pytest.raises(NotImplementedError, match="gqa_decode_q8"):
+            model.decode_step(torch.zeros((2, 1), dtype=torch.int32), cache)
     assert not shd.in_gathered()
 
 
