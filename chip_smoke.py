@@ -228,9 +228,11 @@ SERVE_LOG_ROWS_LOG2 = 26       # the request log's rows
 SERVE_CLIENTS = 8
 # the invariant of tests/test_models.py:57-86 at full width: (prefill,
 # decode steps) per dtype; float32 is held to the reference's 2e-2, for
-# yi_9b at 24 of its 48 layers (all 48 took 57 s of the script's time)
+# yi_9b at 12 of its 48 layers (all 48 took 57 s of the script's time,
+# 24 took 32.8 s and held 2.2e-5: its conditioning is flat, and the
+# script must stay well inside its 20 minutes on a slower host)
 INVARIANT_F32, INVARIANT_BF16, INVARIANT_TOL = (512, 512), (448, 64), 2e-2
-SERVE_F32_LAYERS = 24
+SERVE_F32_LAYERS = 12
 # train: yi_9b at its published widths, 8 of its 48 layers (bf16 params
 # and grads with float32 AdamW moments are 22.9 GB; all 48 need ~106 GB
 # before activations; 24 took ~7.3 s a step, and the script's time goes
@@ -244,8 +246,9 @@ TRAIN_SEQS, TRAIN_STEPS, TRAIN_LR = 1024, 8, 1e-4
 TRAIN_WHY = ("bf16 params and grads with float32 AdamW moments of all of "
              "them need ~106 GB before activations, more than one card's "
              "80 GB; 8 keep the script's time for the phases after it")
-# the restart: 2 layers, 4 steps with a checkpoint every 2 (keep 2)
-RESTART_LAYERS, RESTART_STEPS, RESTART_EVERY = 2, 4, 2
+# the restart: 1 layer (its 8.7 GB checkpoint at 2 layers took ~75 s of
+# saves and a restore), 4 steps with a checkpoint every 2 (keep 2)
+RESTART_LAYERS, RESTART_STEPS, RESTART_EVERY = 1, 4, 2
 # the flash backward at one full-width layer's shapes: B, S, H, K, hd
 FLASH_SHAPE, FLASH_TOL = (1, 4096, 32, 4, 128), 1e-4
 BF16_PEAK_FLOPS = 989e12       # H100 SXM data sheet, dense
@@ -257,11 +260,12 @@ BF16_PEAK_FLOPS = 989e12       # H100 SXM data sheet, dense
 # params and grads and float32 moments ~41 GB; all 27 layers ~188 GB)
 MOE_ARCH, MOE_TRAIN_LAYERS = "deepseek_v2_lite_16b", 6
 # its float32 invariant at the train phase's depth, cut for phase 25
-MOE_F32_LAYERS = 6
+MOE_F32_LAYERS = 3
 MOE_F32_WHY = ("all 27 layers in float32 (62.8 GB of weights) took 89.9 s "
-               "of the script's time on an H100, the longest phase; 6 "
-               "layers (the dense one and 5 MoE) make room for the model "
-               "axis's phase in the script's 20 minutes")
+               "of the script's time on an H100, the longest phase; 3 "
+               "layers (the dense one and 2 MoE; 6 held 2.2e-5 in 19.4 s) "
+               "make room for the model axes' phases in the script's 20 "
+               "minutes")
 MOE_KV_BYTES = 27 * SERVE_BATCH * SERVE_MAX_SEQ * (512 + 64) * 2
 MOE_TRAIN_WHY = ("bf16 params and grads with float32 AdamW moments of all "
                  "15.7 B parameters need ~188 GB, more than one card's 80 GB")
@@ -270,26 +274,21 @@ MOE_TRAIN_WHY = ("bf16 params and grads with float32 AdamW moments of all "
 # whole in bf16 through yi_9b's requests (the longest prompt, 1024, is a
 # multiple of both chunks, 16 and 256) and trained at full width.  Their
 # bf16 invariant is 192 + 64 against 256: zamba's chunk of 256 admits no
-# 448-token prefill.  The float32 invariant is gated whole for rwkv6_3b
-# and at one group (6 Mamba2 layers and the shared block) for
-# zamba2_2p7b: at this init a relative perturbation of 1e-7 grows to
-# ~3e-3 over one group's six Mamba2 layers, so the whole model's prefill
-# and decode differ by ~0.1 in both packages (at d_model 320 in float32
-# on a CPU, 0.138 in the reference and 0.097 in the port:
-# scripts/ssm_conditioning.py); its whole-depth
-# invariant (256 + 256 against 512) is printed without a gate.  Both
-# train at cut depth, each step's chunk loops issued op by op from the
-# host: rwkv6_3b at 1 of 32 layers, zamba2_2p7b at 3 of its 9 groups.
+# 448-token prefill.  The float32 invariant is gated at 6 of rwkv6_3b's
+# 32 layers and at one group (6 Mamba2 layers and the shared block) for
+# zamba2_2p7b (SSM_F32_LAYERS, SSM_F32_WHY).  Both train at cut depth,
+# each step's chunk loops issued op by op from the host: rwkv6_3b at 1
+# of 32 layers, zamba2_2p7b at 1 of its 9 groups.
 SSM_ARCHS = ("rwkv6_3b", "zamba2_2p7b")
-SSM_TRAIN_LAYERS = {"rwkv6_3b": 1, "zamba2_2p7b": 18}
+SSM_TRAIN_LAYERS = {"rwkv6_3b": 1, "zamba2_2p7b": 6}
 SSM_TRAIN_WHY = {
     "rwkv6_3b": "each layer runs 256 chunk steps of 16 tokens a step, "
                 "issued one after the other from the host, ~2.2 s a layer "
                 "on an H100; 1 keeps the phase under a minute",
     "zamba2_2p7b": "a step of all 54 took 10.4 s on an H100 (864 chunk "
-                   "steps and 9 flash passes issued from the host); 18, "
-                   "3 groups and their shared blocks, keep the phase near "
-                   "a minute"}
+                   "steps and 9 flash passes issued from the host), of 18 "
+                   "4.4 s; 6, one group and its shared block, keep the "
+                   "script well inside its 20 minutes"}
 # multi-device on one card (phase 23): 2 gloo ranks on cuda:0; (a) yi_9b
 # at full width with 2 layers on (pod 2, data 1, model 1), 4 steps of the
 # train phase's batch, each rank its half; step 2's synced gradient
@@ -335,9 +334,52 @@ TP_MOE_LAYERS, TP_MOE_SEQ = 2, 1024
 TP_LOGIT_TOL = 1e-4        # of the single-card model's largest logit
 TP_GRAD_TOL = 1e-4         # of each gradient leaf's largest entry
 TP_DEADLINE_S = 600
+# the recurrent families' model axis on one card (phase 26): 2 gloo ranks
+# on cuda:0, mesh (data 1, model 2), every rank the same sequences, from
+# a packed corpus in zamba2_2p7b's vocabulary (the smallest of the three
+# archs'); (a) rwkv6_3b at full width with 1 layer and zamba2_2p7b with
+# one group (6 Mamba2 layers and the shared block) in float32, 2 tp_dp
+# steps of 2 x 1024 tokens against the unsharded step, then tp_sp
+# serving of 4 prompts of 1024 tokens and 16 greedy decode steps against
+# the single-card model; (b) both whole in bf16, tp_sp prefill and
+# decode timed, and tp_dp train steps of 2 x 4096 tokens at (a)'s depths
+# timed; (c) yi_9b at full width with 2 layers in float32, its int8 KV
+# cache served under tp_sp against the single-card int8 decode
+# (phase 25's steps, batches, prompts and decode steps: TP_*)
+RT_RANKS, RT_BF16_STEPS, RT_BF16_BATCH, RT_BF16_DECODE = 2, 2, 2, 8
+RT_LAYERS = {"rwkv6_3b": 1, "zamba2_2p7b": 6}
+RT_Q8_LAYERS = 2
+RT_VOCAB_ARCH = "zamba2_2p7b"
+RT_DEADLINE_S = 600
+# (a) holds each arch's first-step gradients (the first moment after one
+# step) within RT_GRAD_TOL of each leaf's largest entry and its served
+# logits within RT_LOGIT_TOL of the largest.  Adam's first update moves
+# each entry by about lr times its gradient's sign, so an entry near zero
+# that the two runs round to opposite signs parts their states by 2 lr:
+# zamba2_2p7b's state after the steps is shown, not gated (at this init
+# its one group turns last-bit changes into differences of 1e-3 of a
+# leaf's largest gradient entry); rwkv6_3b's is gated at phase 25's
+# tolerances.  The limits are 4 times the worst of the one-device
+# evaluations of scripts/tp_spread.py --device cuda --d-model 0 on an
+# H100 (zamba2_2p7b's one group on (a)'s first batch and prompts: each
+# split layer's output changed in its last bits, four draws, and the
+# prompts served one at a time), rounded up to one digit: gradients
+# 4.20e-3 of a leaf's largest entry, logits 1.12e-4 of the largest
+# (PERF.md §6)
+RT_GRAD_TOL = 2e-2
+RT_LOGIT_TOL = {"rwkv6_3b": TP_LOGIT_TOL, "zamba2_2p7b": 5e-4}
+RT_STATE_GATED = ("rwkv6_3b",)
 SSM_INVARIANT_BF16 = (192, 64)
-SSM_F32_LAYERS = {"rwkv6_3b": 32, "zamba2_2p7b": 6}
-SSM_F32_WHOLE = (256, 256)
+SSM_F32_LAYERS = {"rwkv6_3b": 6, "zamba2_2p7b": 6}
+SSM_F32_WHY = {
+    "rwkv6_3b": "whole it took 50.5 s of the script on an H100 and held "
+                "1.29e-4 of the 2e-2 gate (its conditioning is flat): 6 "
+                "make room for the recurrent model axis",
+    "zamba2_2p7b": "at this init a relative perturbation of 1e-7 grows to "
+                   "~3e-3 over one group's six Mamba2 layers, so the whole "
+                   "model's prefill and decode differ by ~0.1 in the "
+                   "reference and the port alike (0.0343 at 256 + 256 "
+                   "against 512 on an H100; scripts/ssm_conditioning.py)"}
 
 
 def _load_port():
@@ -1527,7 +1569,7 @@ MOE_PATHS = ("moe serve", "moe train")
 SSM_PATHS = tuple(f"{a} {p}" for a in SSM_ARCHS
                   for p in ("serve", "train"))
 PATHS = PLANE_PATHS + TRAIN_PATHS + MOE_PATHS + SSM_PATHS + (
-    "multi-device", "fsdp", "model axis")
+    "multi-device", "fsdp", "model axis", "recurrent model axis")
 
 
 def table_planes(P, store, table: dict, seed: int, card: str) -> dict:
@@ -1741,7 +1783,7 @@ def _serve_run(P, cfg, model, dev, seed: int, card: str) -> dict:
         # leaves with a sequence axis in pages, the others (``pos``,
         # the recurrent states) whole
         want = {f"['{k}']": (SERVE_MAX_SEQ // P.kvcache.PAGE_TOKENS
-                             if f"'{k}'" in P.engine._SEQ_LEAVES else 1)
+                             if k in P.engine._SEQ_LEAVES else 1)
                 for k in cache}
         if pages != want:
             raise AssertionError(f"serve KV pages per leaf {pages}")
@@ -2295,7 +2337,7 @@ def _cache_bytes(shapes: dict) -> int:
 
 
 def _f32_invariant(P, cfg, dev, seed: int, card: str, layers: int,
-                   split: tuple[int, int], gated: bool = True) -> dict:
+                   split: tuple[int, int]) -> dict:
     """The prefill/decode invariant of ``cfg`` at ``layers`` layers in
     float32, printed; the bf16 model must be freed first."""
     model, init_s = _seeded(P, dataclasses.replace(_f32(cfg),
@@ -2307,11 +2349,9 @@ def _f32_invariant(P, cfg, dev, seed: int, card: str, layers: int,
                peak_mem_GB=torch.cuda.max_memory_allocated(dev) / 1e9)
     del model
     _free_card()
-    gate = f"within {INVARIANT_TOL}: {inv['within_2e-2']}" if gated \
-        else "no gate"
-    print(f"{cfg.name} serve invariant (float32, {layers} layers"
-          + ("" if gated else ", no gate") + "): " + json.dumps(inv),
-          flush=True)
+    gate = f"within {INVARIANT_TOL}: {inv['within_2e-2']}"
+    print(f"{cfg.name} serve invariant (float32, {layers} layers): "
+          + json.dumps(inv), flush=True)
     print(f"{cfg.name} invariant: float32 at {layers} of {cfg.n_layers} "
           f"layers ({nbytes} B of weights), prefill {split[0]} + "
           f"{split[1]} decode steps against prefill of {sum(split)}, batch "
@@ -2327,7 +2367,7 @@ def recurrent_serve_path(P, dev, seed: int, card: str, arch: str) -> dict:
     zamba's k / v in pages); the decode step beside its memory bound;
     the bf16 invariant printed; then the float32 invariant at
     ``SSM_F32_LAYERS`` gated at ``INVARIANT_TOL`` (the bf16 model freed
-    first), and below full depth the whole model's printed."""
+    first)."""
     _free_card()
     cfg = P.configs.get_config(arch)
     model, init_s = _seeded(P, cfg, dev, seed)
@@ -2352,19 +2392,8 @@ def recurrent_serve_path(P, dev, seed: int, card: str, arch: str) -> dict:
     layers = SSM_F32_LAYERS[arch]
     inv = _f32_invariant(P, cfg, dev, seed, card, layers, INVARIANT_F32)
     res["invariant_f32"] = inv
-    if layers < cfg.n_layers:
-        res["invariant_f32_whole"] = _f32_invariant(
-            P, cfg, dev, seed, card, cfg.n_layers, SSM_F32_WHOLE,
-            gated=False)
-        print(f"reduced: {arch} float32 invariant gated at {layers} of "
-              f"{cfg.n_layers} layers (one group and the shared block): "
-              f"at this init a relative perturbation of 1e-7 grows to "
-              f"~3e-3 over one group's six Mamba2 layers, so the whole "
-              f"model's prefill and decode differ by ~0.1 in the reference"
-              f" and the port alike (scripts/ssm_conditioning.py); the "
-              f"whole model's is printed "
-              f"without a gate at {SSM_F32_WHOLE[0]} + {SSM_F32_WHOLE[1]}"
-              f" against {sum(SSM_F32_WHOLE)}")
+    print(f"reduced: {arch} float32 invariant gated at {layers} of "
+          f"{cfg.n_layers} layers: {SSM_F32_WHY[arch]}")
     shape = P.configs.SHAPES["decode_32k"]
     B, S = shape.global_batch, shape.seq_len
     need = _cache_bytes(P.archs.build_model(cfg, device="meta")
@@ -3123,10 +3152,12 @@ def _tp_rel(got: dict, want: dict, tol: float) -> dict:
     return {"max_rel_err": worst, "leaf": at, "ok": worst <= tol}
 
 
-def _tp_serve(model, prompts: torch.Tensor, steps: int) -> tuple:
-    """(logits of the prefill and each decode step, greedy tokens) of
-    ``steps`` decode steps after a prefill of ``prompts``, each step's
-    input its own last greedy tokens."""
+def _tp_serve(model, prompts: torch.Tensor, steps: int,
+              with_cache: bool = False) -> tuple:
+    """(logits of the prefill and each decode step, greedy tokens, and
+    with ``with_cache`` the last cache) of ``steps`` decode steps after a
+    prefill of ``prompts``, each step's input its own last greedy
+    tokens."""
     logits, cache = model.prefill({"tokens": prompts},
                                   max_seq=prompts.shape[1] + steps)
     outs, toks = [logits], []
@@ -3135,91 +3166,134 @@ def _tp_serve(model, prompts: torch.Tensor, steps: int) -> tuple:
         toks.append(tok)
         logits, cache = model.decode_step(tok, cache)
         outs.append(logits)
-    return outs, toks
+    return (outs, toks, cache) if with_cache else (outs, toks)
 
 
-def _tp_f32(P, train, serve, words: list, seed: int) -> dict:
-    """(a): yi_9b, ``TP_F32_LAYERS`` layer at full width in float32 under
-    ``megatron_sp``, ``TP_F32_STEPS`` steps of the same 2 x 1024 tokens on
-    both ranks, against the unsharded step (rank 0); then the seeded
-    weights served under ``tp_sp`` against the single-card model."""
+def _tp_cfg(P, arch: str, layers: int | None = None, f32: bool = False):
+    cfg = P.configs.get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    return _f32(cfg) if f32 else cfg
+
+
+def _tp_check(logits: list, toks: list, want: list, want_toks: list,
+                    tol: float) -> dict:
+    top = max(float(w.abs().max()) for w in want)
+    err = max(float((g - w).abs().max()) for g, w in zip(logits, want))
+    return {"max_abs_err": err, "max_abs_logit": top,
+            "within": err <= tol * top,
+            "tokens_equal": all(torch.equal(a, b)
+                                for a, b in zip(toks, want_toks))}
+
+
+def _tp_single(P, cfg, opt, batches: list, prompts, seed: int) -> dict:
+    """The single-card run of a parity check on rank 0: the unsharded
+    steps' state (and ``m1``, the first moment after the first step: its
+    clipped gradients times 1 - beta1) and the served logits and tokens
+    of the seeded weights."""
+    from repro_torch.train import steps
+
+    dev = torch.device(DEVICE)
+
+    def seeded():
+        return _seeded(P, cfg, dev, seed)[0]
+
+    model = seeded()
+    state = {"params": dict(model.named_parameters()),
+             "opt": P.optimizer.init_opt_state(
+                 dict(model.named_parameters()), torch.float32)}
+    step = steps.make_train_step(model, opt)
+    losses, m1 = [], None
+    for b in batches:
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+        if m1 is None:
+            m1 = {n: t.clone() for n, t in state["opt"]["m"].items()}
+    out = {"losses": losses, "m1": m1,
+           "params": {n: p.detach().clone()
+                      for n, p in state["params"].items()},
+           "m": state["opt"]["m"], "v": state["opt"]["v"]}
+    del model, state, step
+    _free_card()
+    model = seeded()
+    with torch.no_grad():
+        out["logits"], out["toks"] = _tp_serve(model, prompts, TP_DECODE)
+    del model
+    _free_card()
+    return out
+
+
+def _tp_parity(P, cfg, train, serve, words: list, seed: int,
+               logit_tol: float = TP_LOGIT_TOL,
+               first_step: bool = False) -> dict:
+    """``cfg`` (float32) trained ``TP_F32_STEPS`` steps under ``train``
+    on the same 2 x 1024 tokens on both ranks against the unsharded step
+    (rank 0): the state after the last step and, with ``first_step``,
+    the first moment after the first (``m1``: the clipped first-step
+    gradients times 1 - beta1, before Adam divides by their size); then
+    the seeded weights served under ``serve`` against the single-card
+    model within ``logit_tol`` of its largest logit."""
     import torch.distributed as dist
 
     from repro_torch.distributed import sharding as shd
     from repro_torch.train import steps
 
     dev = torch.device(DEVICE)
-    cfg = dataclasses.replace(P.configs.get_config(TRAIN_ARCH),
-                              n_layers=TP_F32_LAYERS,
-                              param_dtype=torch.float32,
-                              compute_dtype=torch.float32)
     opt = P.optimizer.OptConfig(lr=TRAIN_LR, warmup_steps=2,
                                 total_steps=TP_F32_STEPS)
     batches = [P.ingest.fused_batch(w[:TP_F32_BATCH, :TP_F32_SEQ // 32])
                for w in words[:TP_F32_STEPS]]
     prompts = P.ingest.fused_batch(
         words[0][:TP_SERVE_BATCH, :TP_SERVE_SEQ // 32])["tokens"]
-
-    def seeded():
-        return P.archs.build_model(cfg, remat="full", device=dev).init(
-            torch.Generator(device=dev).manual_seed(seed))
-
     model = P.archs.build_model(cfg, remat="full", device=dev)
     state = steps.init_train_state(
         model, torch.Generator(device=dev).manual_seed(seed))
     state = steps.shard_train_state(model, state, train)
     step = steps.make_train_step(model, opt)
-    losses = []
+    losses, m1 = [], None
+    shd.reset_collective_bytes()
     with shd.use_rules(train):
         for b in batches:
             state, m = step(state, b)
             losses.append(float(m["loss"]))
-        got = {"params": _fs_whole(P, model, state["params"], train),
+            if first_step and m1 is None:     # a whole leaf is the block
+                m1 = {k: t.clone() for k, t in _fs_whole(
+                    P, model, state["opt"]["m"], train).items()}
+        got = {"m1": m1,
+               "params": _fs_whole(P, model, state["params"], train),
                "m": _fs_whole(P, model, state["opt"]["m"], train),
                "v": _fs_whole(P, model, state["opt"]["v"], train)}
-    del model, state, step
+    train_bytes = dict(shd.COLLECTIVE_BYTES)
+    del model, state, step, m1
     _free_card()
-    model = seeded()
+    model = _seeded(P, cfg, dev, seed)[0]
     steps.shard_params(model, serve)
     shd.reset_collective_bytes()
     with torch.no_grad(), shd.use_rules(serve):
         logits, toks = _tp_serve(model, prompts, TP_DECODE)
-    moved = dict(shd.COLLECTIVE_BYTES)
+    serve_bytes = dict(shd.COLLECTIVE_BYTES)
     del model
     _free_card()
     res = {"losses": losses, "tokens": list(batches[0]["tokens"].shape),
-           "prompts": list(prompts.shape), "serve_bytes": moved}
+           "prompts": list(prompts.shape), "train_bytes": train_bytes,
+           "serve_bytes": serve_bytes}
     if dist.get_rank() == 0:
-        model = P.archs.build_model(cfg, remat="full", device=dev)
-        state = steps.init_train_state(
-            model, torch.Generator(device=dev).manual_seed(seed))
-        step = steps.make_train_step(model, opt)
-        want_losses = []
-        for b in batches:
-            state, m = step(state, b)
-            want_losses.append(float(m["loss"]))
+        want = _tp_single(P, cfg, opt, batches, prompts, seed)
         lr_moved = 2 * TRAIN_LR * TP_F32_STEPS
         res.update(
-            unsharded_losses=want_losses,
-            params=_fs_close(got["params"], {n: p.detach() for n, p in
-                                             state["params"].items()},
-                             FS_TRAIN_TOL, 1e-3, lr_moved),
-            m=_fs_close(got["m"], state["opt"]["m"], FS_TRAIN_TOL),
-            v=_fs_close(got["v"], state["opt"]["v"], FS_TRAIN_TOL))
-        del model, state, step
-        _free_card()
-        model = seeded()
-        with torch.no_grad():
-            want, want_toks = _tp_serve(model, prompts, TP_DECODE)
-        top = max(float(w.abs().max()) for w in want)
-        err = max(float((g - w).abs().max()) for g, w in zip(logits, want))
-        res["serve"] = {
-            "max_abs_err": err, "max_abs_logit": top,
-            "within": err <= TP_LOGIT_TOL * top,
-            "tokens_equal": all(torch.equal(a, b)
-                                for a, b in zip(toks, want_toks))}
-        del model, want
-    del got, logits
+            unsharded_losses=want["losses"],
+            params=_fs_close(got["params"], want["params"], FS_TRAIN_TOL,
+                             1e-3, lr_moved),
+            m=_fs_close(got["m"], want["m"], FS_TRAIN_TOL),
+            v=_fs_close(got["v"], want["v"], FS_TRAIN_TOL),
+            serve=_tp_check(logits, toks, want["logits"], want["toks"],
+                            logit_tol),
+            rel={k: _tp_rel(got[k], want[k], 1.0)
+                 for k in ("params", "m", "v")})
+        if first_step:
+            res.update(grads=_tp_rel(got["m1"], want["m1"], RT_GRAD_TOL),
+                       sign_flips=_sign_flips(got["m1"], want["m1"]))
+        del got, logits, want
     _free_card()
     return res
 
@@ -3372,7 +3446,8 @@ def _tp_rank(rank: int, world: int, init: str, tmp: str, seed: int) -> None:
         walls = {}
         t = time.perf_counter()
         _zero_counts(P)
-        res = {"f32": _tp_f32(P, train, serve, words, seed)}
+        cfg = _tp_cfg(P, TRAIN_ARCH, TP_F32_LAYERS, f32=True)
+        res = {"f32": _tp_parity(P, cfg, train, serve, words, seed)}
         res["f32"]["launches"] = _counts(P)
         walls["a_s"] = time.perf_counter() - t
         t = time.perf_counter()
@@ -3466,6 +3541,320 @@ def tp_path(P, dev, seed: int, card: str) -> dict:
             for r in ranks):
         raise AssertionError(f"model axis: aux {c['aux_loss']}, launches "
                              f"{[r['f32']['launches'] for r in ranks]}")
+    return res
+
+
+# --------------------------------------------------------------------------
+# the recurrent families' model axis on one card (phase 26)
+# --------------------------------------------------------------------------
+
+
+def _sign_flips(got: dict, want: dict) -> dict:
+    """Entries of two trees with opposite signs, and the largest of them
+    over its leaf's largest entry: where Adam's first update, about lr
+    times the sign of each gradient entry, parts the two runs by 2 lr."""
+    n, worst, at = 0, 0.0, None
+    for k, w in want.items():
+        w = w.float()
+        flip = got[k].float() * w < 0
+        n += int(flip.sum())
+        if flip.any():
+            rel = float(w[flip].abs().max()) / float(w.abs().max())
+            if rel >= worst:
+                worst, at = rel, k
+    return {"entries": n, "largest_rel": worst, "leaf": at}
+
+
+def _rt_gates(arch: str, a: dict) -> dict:
+    """Which of (a)'s comparisons hold: the first step's gradients
+    within ``RT_GRAD_TOL`` of each leaf's largest entry; for an arch in
+    ``RT_STATE_GATED`` the params and moments after the last step within
+    phase 25's tolerances; the served logits within ``RT_LOGIT_TOL``,
+    the greedy tokens equal."""
+    gates = {"grads": a["grads"]["ok"], "logits": a["serve"]["within"],
+             "tokens": a["serve"]["tokens_equal"]}
+    if arch in RT_STATE_GATED:
+        gates.update({k: a[k]["ok"] for k in ("params", "m", "v")})
+    return gates
+
+
+def _rt_bf16(P, arch: str, train, serve, words: list, seed: int) -> dict:
+    """(b): ``arch`` whole in bf16 served under ``tp_sp`` (prefill of 4 x
+    1024 tokens and ``RT_BF16_DECODE`` greedy steps, each timed with its
+    wire bytes), then ``RT_BF16_STEPS`` ``tp_dp`` steps of the same two
+    4096-token sequences on both ranks at (a)'s depth, timed."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.train import steps
+
+    dev = torch.device(DEVICE)
+    cfg = _tp_cfg(P, arch)
+    prompts = P.ingest.fused_batch(
+        words[0][:TP_SERVE_BATCH, :TP_SERVE_SEQ // 32])["tokens"]
+    torch.distributed.barrier()          # rank 0 ran (a)'s unsharded work
+    _free_card()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = _seeded(P, cfg, dev, seed)[0]
+    n_params = sum(p.numel() for p in model.parameters())
+    steps.shard_params(model, serve)
+    local = sum(p.numel() for p in model.parameters())
+    walls, moved = [], []
+    with torch.no_grad(), shd.use_rules(serve):
+        _sync(dev)
+        shd.reset_collective_bytes()
+        t = time.perf_counter()
+        logits, cache = model.prefill({"tokens": prompts},
+                                      max_seq=TP_SERVE_SEQ + RT_BF16_DECODE)
+        tok = logits.argmax(-1, keepdim=True).int()     # syncs
+        prefill_s = time.perf_counter() - t
+        prefill_bytes = dict(shd.COLLECTIVE_BYTES)
+        for _ in range(RT_BF16_DECODE):
+            shd.reset_collective_bytes()
+            t = time.perf_counter()
+            logits, cache = model.decode_step(tok, cache)
+            tok = logits.argmax(-1, keepdim=True).int()
+            walls.append(time.perf_counter() - t)
+            moved.append(dict(shd.COLLECTIVE_BYTES))
+    cache_bytes = _cache_bytes(cache)
+    serve_peak = torch.cuda.max_memory_allocated(dev)
+    finite = bool(torch.isfinite(logits).all())
+    del model, cache, logits
+    _free_card()
+    cfg = _tp_cfg(P, arch, RT_LAYERS[arch])
+    opt = P.optimizer.OptConfig(lr=TRAIN_LR, warmup_steps=2,
+                                total_steps=RT_BF16_STEPS)
+    model = P.archs.build_model(cfg, remat="full", device=dev)
+    state = steps.init_train_state(
+        model, torch.Generator(device=dev).manual_seed(seed))
+    state = steps.shard_train_state(model, state, train)
+    step = steps.make_train_step(model, opt)
+    _free_card()
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_walls, losses, step_bytes = [], [], []
+    _zero_counts(P)                      # the path's run starts here
+    with shd.use_rules(train):
+        for w in words[:RT_BF16_STEPS]:
+            _sync(dev)
+            shd.reset_collective_bytes()
+            t = time.perf_counter()
+            state, m = step(state, P.ingest.fused_batch(w[:RT_BF16_BATCH]))
+            losses.append(float(m["loss"]))          # syncs
+            step_walls.append(time.perf_counter() - t)
+            step_bytes.append(dict(shd.COLLECTIVE_BYTES))
+    launches = _counts(P)                # ... and ends here
+    train_peak = torch.cuda.max_memory_allocated(dev)
+    del model, state, step
+    _free_card()
+    return {"params": n_params, "local_params": local,
+            "prefill_s": prefill_s, "prefill_bytes": prefill_bytes,
+            "decode_s": walls, "decode_bytes": moved[-1],
+            "cache_bytes": cache_bytes, "serve_peak_GB": serve_peak / 1e9,
+            "finite": finite, "step_s": step_walls, "losses": losses,
+            "step_bytes": step_bytes, "train_peak_GB": train_peak / 1e9,
+            "launches": launches}
+
+
+def _rt_q8(P, serve, words: list, seed: int) -> dict:
+    """(c): yi_9b at full width with ``RT_Q8_LAYERS`` layers in float32,
+    its int8 KV cache (the port's ``KV_CACHE_QUANT``) served under
+    ``tp_sp`` against the single-card int8 decode (rank 0); the int8
+    cache's sequence blocks gathered and compared there."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.train import steps
+
+    dev = torch.device(DEVICE)
+    cfg = _tp_cfg(P, TRAIN_ARCH, RT_Q8_LAYERS, f32=True)
+    prompts = P.ingest.fused_batch(
+        words[0][:TP_SERVE_BATCH, :TP_SERVE_SEQ // 32])["tokens"]
+    P.transformer.KV_CACHE_QUANT = True
+    try:
+        model = _seeded(P, cfg, dev, seed)[0]
+        steps.shard_params(model, serve)
+        sp = shd.logical_group(serve, "sp")
+        shd.reset_collective_bytes()
+        _sync(dev)
+        t = time.perf_counter()
+        with torch.no_grad(), shd.use_rules(serve):
+            logits, toks, cache = _tp_serve(model, prompts, TP_DECODE,
+                                            with_cache=True)
+        _sync(dev)
+        res = {"serve_s": time.perf_counter() - t,
+               "bytes": dict(shd.COLLECTIVE_BYTES),
+               "cache_dtype": str(cache["k"].dtype)}
+        mine = {k: shd.all_gather_dim(cache[k], 2, sp.group)
+                for k in ("k", "v")}
+        del model, cache
+        _free_card()
+        if dist.get_rank() == 0:
+            model = _seeded(P, cfg, dev, seed)[0]
+            with torch.no_grad():
+                want, want_toks, wcache = _tp_serve(
+                    model, prompts, TP_DECODE, with_cache=True)
+            off = {k: (mine[k].int() - wcache[k].int()).abs()
+                   for k in ("k", "v")}
+            flips = sum(int((o > 0).sum()) for o in off.values())
+            entries = sum(o.numel() for o in off.values())
+            res.update(
+                flips=flips, entries=entries,
+                max_off=max(int(o.max()) for o in off.values()),
+                serve=_tp_check(logits, toks, want, want_toks,
+                                TP_LOGIT_TOL))
+            del model, want, wcache, off
+    finally:
+        P.transformer.KV_CACHE_QUANT = False
+    del logits, mine
+    _free_card()
+    return res
+
+
+def _rt_rank(rank: int, world: int, init: str, tmp: str, seed: int) -> None:
+    import torch.distributed as dist
+    P = _load_port()
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=world)
+    try:
+        from repro_torch.distributed import sharding as shd
+        from repro_torch.launch import mesh as lmesh
+
+        mesh = lmesh.make_smoke_mesh((1, RT_RANKS), ("data", "model"))
+        train = shd.MeshRules(mesh, strategy="tp_dp")
+        serve = shd.MeshRules(mesh, strategy="tp_sp")
+        store = P.core.make_store(8, replicas=2)
+        try:
+            vol = P.core.GlobalVOL(store)
+            P.corpus.build_corpus(vol, P.corpus.CorpusSpec(
+                n_seqs=FS_CORPUS_SEQS, seq_len=TRAIN_SEQ,
+                vocab_size=P.configs.get_config(RT_VOCAB_ARCH).vocab_size,
+                seed=seed), chunk_rows=FS_CORPUS_SEQS)
+            words = _fs_batches(P, vol, 0, seed,
+                                max(RT_BF16_STEPS, TP_F32_STEPS), dp_size=1)
+        finally:
+            store.close()
+        res, walls = {}, {}
+        for arch in SSM_ARCHS:
+            t = time.perf_counter()
+            _zero_counts(P)
+            res[f"{arch} f32"] = _tp_parity(
+                P, _tp_cfg(P, arch, RT_LAYERS[arch], f32=True), train,
+                serve, words, seed, RT_LOGIT_TOL[arch], first_step=True)
+            res[f"{arch} f32"]["launches"] = _counts(P)
+            walls[f"a {arch}"] = time.perf_counter() - t
+        for arch in SSM_ARCHS:
+            t = time.perf_counter()
+            res[f"{arch} bf16"] = _rt_bf16(P, arch, train, serve, words,
+                                           seed)
+            walls[f"b {arch}"] = time.perf_counter() - t
+        t = time.perf_counter()
+        _zero_counts(P)
+        res["q8"] = _rt_q8(P, serve, words, seed)
+        res["q8"]["launches"] = _counts(P)
+        walls["c"] = time.perf_counter() - t
+        res["walls"] = walls
+        (Path(tmp) / f"rank{rank}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def recurrent_tp_path(P, dev, seed: int, card: str) -> dict:
+    """Phase 26: ``RT_RANKS`` gloo ranks on this one card run rwkv6_3b's
+    and zamba2_2p7b's layers split over the model axis
+    (``MeshRules(strategy="tp_dp")`` for training, ``"tp_sp"`` for
+    serving) and yi_9b's int8 KV cache under ``tp_sp``, against the
+    single-card model."""
+    _free_card()
+    t0 = time.perf_counter()
+    ranks = _spawned(_rt_rank, RT_RANKS, seed, RT_DEADLINE_S,
+                     "recurrent model axis")
+    wall = time.perf_counter() - t0
+    parts = [r[k]["launches"] for r in ranks for k in r if k != "walls"]
+    res = {"ranks": RT_RANKS, "wall_s": wall, "rank0": ranks[0],
+           "rank1": {k: ranks[1][k] for k in ranks[1] if "bf16" in k},
+           "launches": {k: sum(x[k] for x in parts) for k in KERNELS}}
+    print("recurrent model axis: " + json.dumps(res), flush=True)
+    for arch in SSM_ARCHS:
+        a, b = ranks[0][f"{arch} f32"], [r[f"{arch} bf16"] for r in ranks]
+        dec = b[0]["decode_s"]
+        per_step = [{k: v for k, v in x.items() if v}
+                    for x in b[0]["step_bytes"]]
+        rel = {k: f"{v['max_rel_err']:.3g} ({v['leaf']})"
+               for k, v in a["rel"].items()}
+        state = "gated" if arch in RT_STATE_GATED else "shown, not gated"
+        print(f"recurrent model axis (a): {arch} {RT_LAYERS[arch]} layers "
+              f"in float32 under tp_dp on (data 1, model {RT_RANKS}), "
+              f"{TP_F32_STEPS} steps of {a['tokens']} tokens: losses "
+              f"{a['losses']} against unsharded {a['unsharded_losses']}; "
+              f"first-step gradients (m after one step) {a['grads']}, "
+              f"entries of opposite sign {a['sign_flips']}; state after "
+              f"{TP_F32_STEPS} steps ({state}): gathered params "
+              f"{a['params']}, m {a['m']}, v {a['v']}, worst error over "
+              f"its leaf's largest entry {rel}; wire bytes "
+              f"{a['train_bytes']}; tp_sp serving of {a['prompts']} prompt "
+              f"tokens and {TP_DECODE} greedy decode steps against the "
+              f"single-card model: {a['serve']} (within "
+              f"{RT_LOGIT_TOL[arch]} of the largest; {a['serve_bytes']} B);"
+              f" gates {_rt_gates(arch, a)}  [{card}]", flush=True)
+        print(f"recurrent model axis (b): {arch} whole ({b[0]['params']} "
+              f"params, {b[0]['local_params']} a rank) in bf16 under tp_sp:"
+              f" prefill of {TP_SERVE_BATCH} x {TP_SERVE_SEQ} "
+              f"{b[0]['prefill_s'] * 1e3:.3f} ms ({b[0]['prefill_bytes']} "
+              f"B), {RT_BF16_DECODE} decode steps {np.mean(dec) * 1e3:.3f} "
+              f"ms a step (median "
+              f"{np.median(dec) * 1e3:.3f}; {b[0]['decode_bytes']} B a "
+              f"step), cache {b[0]['cache_bytes']} B a rank, peak "
+              f"{[round(x['serve_peak_GB'], 3) for x in b]} GB; tp_dp at "
+              f"{RT_LAYERS[arch]} layers, {RT_BF16_STEPS} packed-ingest "
+              f"steps of {RT_BF16_BATCH} x {TRAIN_SEQ} tokens on both "
+              f"ranks: step walls (s) rank 0 "
+              f"{[round(x, 4) for x in b[0]['step_s']]}, rank 1 "
+              f"{[round(x, 4) for x in b[1]['step_s']]}; losses "
+              f"{[round(x, 4) for x in b[0]['losses']]}; wire bytes a rank "
+              f"a step {per_step}; peak "
+              f"{[round(x['train_peak_GB'], 3) for x in b]} GB  [{card}]",
+              flush=True)
+    c = ranks[0]["q8"]
+    print(f"recurrent model axis (c): {TRAIN_ARCH} {RT_Q8_LAYERS} layers in "
+          f"float32 with the int8 KV cache ({c['cache_dtype']}) under tp_sp:"
+          f" {TP_SERVE_BATCH} x {TP_SERVE_SEQ} prompts and {TP_DECODE} "
+          f"greedy decode steps against the single-card int8 decode: "
+          f"{c['serve']}; quantizer flips {c['flips']} of {c['entries']} "
+          f"int8 entries (largest {c['max_off']}); {c['serve_s']:.3f} s, "
+          f"{c['bytes']} B; parts (s) "
+          f"{ {k: round(v, 1) for k, v in ranks[0]['walls'].items()} }, "
+          f"phase {wall:.1f} s  [{card}]", flush=True)
+    print(f"reduced: recurrent model axis trained at "
+          f"{RT_LAYERS['rwkv6_3b']} of rwkv6_3b's 32 layers and one of "
+          f"zamba2_2p7b's 9 groups, served whole; {TRAIN_ARCH}'s int8 cache "
+          f"at {RT_Q8_LAYERS} of 48 layers; 2 ranks sharing one card over "
+          f"gloo (the production mesh is (16, 16) over NCCL)")
+    for arch in SSM_ARCHS:
+        a = ranks[0][f"{arch} f32"]
+        gates = _rt_gates(arch, a)
+        if not all(gates.values()):
+            raise AssertionError(f"recurrent model axis: {arch} (a) {gates}")
+        for r in ranks:
+            f, b = r[f"{arch} f32"], r[f"{arch} bf16"]
+            if f["launches"] != {"bitunpack": TP_F32_STEPS + 1,
+                                 "filter_agg": 0, "block_agg": 0}:
+                raise AssertionError(f"recurrent model axis: {arch} (a) "
+                                     f"launches {f['launches']}")
+            if b["launches"] != {"bitunpack": RT_BF16_STEPS,
+                                 "filter_agg": 0, "block_agg": 0}:
+                raise AssertionError(f"recurrent model axis: {arch} (b) "
+                                     f"launches {b['launches']}")
+            if not (b["finite"] and all(np.isfinite(b["losses"]))
+                    and b["losses"] == ranks[0][f"{arch} bf16"]["losses"]):
+                raise AssertionError(f"recurrent model axis: {arch} (b) "
+                                     f"{b['losses']}, finite {b['finite']}")
+            if not all(x["all_reduce"] for x in b["step_bytes"]) or \
+                    not b["prefill_bytes"]["all_reduce"]:
+                raise AssertionError(f"recurrent model axis: {arch} moved "
+                                     "nothing over the model axis")
+    if not (c["serve"]["within"] and c["serve"]["tokens_equal"]
+            and c["cache_dtype"] == "torch.int8" and c["max_off"] <= 1
+            and c["flips"] <= c["entries"] // 1000):
+        raise AssertionError(f"recurrent model axis: int8 cache {c}")
     return res
 
 
@@ -3639,6 +4028,9 @@ def main(argv=None) -> int:
     lap("FSDP on one card")
     planes["model axis"] = tp_path(P, dev, args.seed, card)
     lap("model axis on one card")
+    planes["recurrent model axis"] = recurrent_tp_path(P, dev, args.seed,
+                                                       card)
+    lap("recurrent model axis on one card")
 
     scans = {"scan": res["launches"],
              "packed ingest": ing["launches"]["bitunpack"],

@@ -242,9 +242,9 @@ def make_compressed_train_step(model, opt_cfg, rules: shd.MeshRules):
     pod, and a ``tp``-cut leaf's scale is the max over its model slices
     as over its storage blocks.  There a replicated state raises
     ``ValueError`` (cut it with ``shard_train_state``), and a model
-    without tensor-parallel layers (the recurrent families)
-    ``NotImplementedError``.  A mesh without a pod axis raises
-    ``ValueError``."""
+    whose split layers this step does not run raises there
+    (``LanguageModel.refuse_compressed_model_axis``).  A mesh without a
+    pod axis raises ``ValueError``."""
     from repro_torch.models.transformer import reference_path
     from repro_torch.train.optimizer import adamw_update
     from repro_torch.train.steps import reference_decay
@@ -254,12 +254,8 @@ def make_compressed_train_step(model, opt_cfg, rules: shd.MeshRules):
     if "pod" not in sizes:
         raise ValueError(f"the mesh {rules.all_axes} has no 'pod' axis")
     tp_wide = shd.axes_size(mesh, rules.table["tp"]) > 1
-    if tp_wide and not getattr(model, "TENSOR_PARALLEL", False):
-        raise NotImplementedError(
-            f"model axis of {sizes['model']} under strategy "
-            f"{rules.strategy!r}: {type(model).__name__} has no "
-            "tensor-parallel layers (the recurrent families' model axis is "
-            "not realised)")
+    if tp_wide:
+        model.refuse_compressed_model_axis(rules)
     n_data, n_pod = sizes.get("data", 1), sizes["pod"]
     data = mesh.get_group("data") if n_data > 1 else None
     pod = mesh.get_group("pod")
@@ -400,8 +396,7 @@ def init_compressed_state(state: dict, rules: shd.MeshRules | None = None
             raise ValueError("an FSDP state's error blocks need its rules")
         inner = _pod_local(rules)
         return shd.block_shape(
-            shd.param_layout(inner, p.fsdp_spec, p.fsdp_shape,
-                             tp=getattr(p, "fsdp_tp", True)), rules.mesh)
+            shd.param_layout(inner, p.fsdp_spec, p.fsdp_shape), rules.mesh)
 
     err = {name: torch.zeros((1, *block(p)), dtype=torch.float32,
                              device=p.device)

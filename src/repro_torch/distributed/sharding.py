@@ -62,10 +62,8 @@ is a collective with its exact adjoint, and a parameter's gradient is
 summed over the axes on which it is replicated, never over those that
 shard it.  So Megatron's f/g pair (an input copy whose backward is an
 all-reduce) is not used: with the sum over replicas it would count each
-gradient ``model`` times.  A ``tp`` entry over an axis larger than 1
-raises ``NotImplementedError`` for a model whose layers have no
-tensor-parallel form (``param_layout(..., tp=False)``: the recurrent
-families), and any other logical axis on a parameter raises too.
+gradient ``model`` times.  A logical axis other than a storage or a
+``tp`` one on a parameter raises ``NotImplementedError``.
 :data:`COLLECTIVE_BYTES` counts the wire bytes of the collectives this
 module runs.
 """
@@ -661,15 +659,12 @@ def active_axes(rules: MeshRules) -> tuple:
                  if a not in rules.manual_axes and sizes[a] > 1)
 
 
-def param_layout(rules: MeshRules, logical: tuple, shape, *,
-                 tp: bool = True) -> ParamLayout:
+def param_layout(rules: MeshRules, logical: tuple, shape) -> ParamLayout:
     """The layout of a ``shape`` parameter with logical spec ``logical``
     under ``rules``: its spec resolved and fitted.  At most one storage
     dimension (``fsdp`` / ``fsdp_expert``) and one ``tp`` dimension may
-    land on axes larger than 1.  Raises ``NotImplementedError`` where a
-    ``tp`` dimension does and ``tp`` is False (a model without
-    tensor-parallel layers), where another logical axis does, or where
-    two dimensions of one kind do."""
+    land on axes larger than 1.  Raises ``NotImplementedError`` where
+    another logical axis does, or where two dimensions of one kind do."""
     sizes = mesh_sizes(rules.mesh)
     spec = fitted(rules, logical, shape)
     stored, split = [], []
@@ -677,12 +672,6 @@ def param_layout(rules: MeshRules, logical: tuple, shape, *,
         axes = tuple(a for a in _axes(entry) if sizes[a] > 1)
         if not axes:
             continue
-        if name == "tp" and not tp:
-            raise NotImplementedError(
-                f"logical axis 'tp' of a {tuple(shape)} parameter lands on "
-                f"mesh axes {axes} under strategy {rules.strategy!r}: this "
-                "model's tensor-parallel layers (the model axis) are not "
-                "realised")
         if name not in (*_STORAGE, "tp"):
             raise NotImplementedError(
                 f"logical axis {name!r} of a {tuple(shape)} parameter lands "
@@ -708,14 +697,11 @@ def block_shape(layout: ParamLayout, mesh) -> tuple:
     return tuple(shape)
 
 
-def mark_sharded(p: torch.Tensor, logical: tuple, shape,
-                 tp: bool = True) -> None:
+def mark_sharded(p: torch.Tensor, logical: tuple, shape) -> None:
     """Mark ``p`` as the block of a whole ``shape`` parameter with
-    logical spec ``logical``: :func:`gathered` then gathers it.  ``tp``
-    False: its model has no tensor-parallel layers (``param_layout``)."""
+    logical spec ``logical``: :func:`gathered` then gathers it."""
     p.fsdp_spec = tuple(logical)
     p.fsdp_shape = tuple(shape)
-    p.fsdp_tp = tp
 
 
 def is_sharded(p: torch.Tensor) -> bool:
@@ -725,8 +711,7 @@ def is_sharded(p: torch.Tensor) -> bool:
 def layout_of(p: torch.Tensor, rules: MeshRules) -> ParamLayout:
     """A marked parameter's layout under ``rules``; its block's shape
     must be the layout's."""
-    layout = param_layout(rules, p.fsdp_spec, p.fsdp_shape,
-                          tp=getattr(p, "fsdp_tp", True))
+    layout = param_layout(rules, p.fsdp_spec, p.fsdp_shape)
     want = block_shape(layout, rules.mesh)
     if tuple(p.shape) != want:
         raise ValueError(f"a block of shape {tuple(p.shape)} where the "

@@ -337,20 +337,28 @@ def _valid(S: int, pos: torch.Tensor, sp, device) -> torch.Tensor:
     return torch.arange(first, first + S, device=device) <= pos
 
 
-def _attend(s: torch.Tensor, vals: torch.Tensor, spec: str, sp):
+def _attend(s: torch.Tensor, vals: torch.Tensor, spec: str, sp,
+            v_scale: torch.Tensor | None = None):
     """``softmax(s) @ vals`` in ``vals``' dtype, the softmax over the
     last axis of ``s`` (float32, masked) and ``spec`` the value product.
-    With ``sp`` the positions are the rank's block: its max, sum of
+    With ``v_scale`` (int8 ``vals``: each position's scale, shaped as
+    ``s``) each weight is multiplied by its position's scale and the
+    product runs on the values in float32, which it returns.  With
+    ``sp`` the positions are the rank's block: its max, sum of
     exponentials and weighted values are combined over the group."""
     if sp is None:
         w = torch.softmax(s, dim=-1)
+        if v_scale is not None:
+            return torch.einsum(spec, w * v_scale, vals.float())
         return torch.einsum(spec, w.to(vals.dtype), vals)
     top = shd.all_reduce_(s.amax(-1), sp.group, shd.reduce_op("max"))
     e = torch.exp(s - top[..., None])
-    o = torch.einsum(spec, e.to(vals.dtype).float(), vals.float())
+    ew = e.to(vals.dtype).float() if v_scale is None else e * v_scale
+    o = torch.einsum(spec, ew, vals.float())
     both = shd.all_reduce_(torch.cat([o, e.sum(-1)[..., None]], -1),
                            sp.group)
-    return (both[..., :-1] / both[..., -1:]).to(vals.dtype)
+    o = both[..., :-1] / both[..., -1:]
+    return o if v_scale is not None else o.to(vals.dtype)
 
 
 def _heads_out(o: torch.Tensor, wo: torch.Tensor, tp) -> torch.Tensor:
@@ -398,39 +406,38 @@ def quantize_kv(x: torch.Tensor):
 
 
 def gqa_decode_q8(cfg: ArchConfig, p, x: torch.Tensor, pos,
-                  k_cache, v_cache, k_scale, v_scale):
+                  k_cache, v_cache, k_scale, v_scale, sp=None):
     """gqa_decode against an int8-quantized cache: (B, S, K, hd) int8 +
-    (B, S, K) f32 scales, all updated in place.  Not realised over a
-    model axis: a ``tp`` or ``sp`` group larger than 1 raises."""
-    rules = shd.active_rules()
-    if any(shd.logical_group(rules, a) is not None for a in ("tp", "sp")):
-        raise NotImplementedError(
-            "gqa_decode_q8 over a model axis larger than 1: the int8 KV "
-            "cache's tensor-parallel, sequence-sharded decode is not "
-            "realised")
+    (B, S, K) f32 scales, all updated in place (with ``sp``, the rank's
+    block of the positions: the owner writes all four).  ``k_scale`` is
+    folded into the scores and ``v_scale`` into the weights before the
+    value product, so a sequence-sharded softmax combines the
+    reference's ``w * v_scale``; with ``wq`` / ``wo`` the rank's head
+    slice, every head reads the rank's block and the output is summed
+    over the model axis, as in :func:`gqa_decode`."""
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // K
     B, S = k_cache.shape[0], k_cache.shape[1]
     pos, q, k, v = _decode_qkv(cfg, p, x, pos)
     kq, ks = quantize_kv(k)
     vq, vs = quantize_kv(v)
-    _write(k_cache, kq, pos)
-    _write(v_cache, vq, pos)
-    _write(k_scale, ks, pos)
-    _write(v_scale, vs, pos)
+    _write(k_cache, kq, pos, sp)
+    _write(v_cache, vq, pos, sp)
+    _write(k_scale, ks, pos, sp)
+    _write(v_scale, vs, pos, sp)
+    tp = shd.tp_group(H, q.shape[2])
+    if tp is not None:                 # every head reads the rank's block
+        q = shd.all_gather_dim(q, 2, tp.group)
 
     qg = q.reshape(B, K, G, hd)
     # dequant folded into the contraction: s = (q . k_int8) * scale
     s = torch.einsum("bkgd,bskd->bkgs", qg.float(),
                      k_cache.float()) * (hd ** -0.5)
     s = s * k_scale.transpose(1, 2)[:, :, None, :]
-    valid = torch.arange(S, device=x.device) <= pos
-    s = torch.where(valid, s, _NEG)
-    w = torch.softmax(s, dim=-1)
-    wv = w * v_scale.transpose(1, 2)[:, :, None, :]
-    o = torch.einsum("bkgs,bskd->bkgd", wv, v_cache.float())
-    out = torch.einsum("bhk,hkd->bd", o.reshape(B, H, hd).to(x.dtype),
-                       p["wo"])[:, None, :]
+    s = torch.where(_valid(S, pos, sp, x.device), s, _NEG)
+    o = _attend(s, v_cache, "bkgs,bskd->bkgd", sp,
+                v_scale=v_scale.transpose(1, 2)[:, :, None, :])
+    out = _heads_out(o.reshape(B, H, hd).to(x.dtype), p["wo"], tp)
     return out.to(x.dtype), k_cache, v_cache, k_scale, v_scale
 
 

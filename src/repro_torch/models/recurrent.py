@@ -27,6 +27,20 @@ block or group gathers its parameters inside that region, zamba's
 shared block at each of its G uses (``models.transformer``).
 ``decode_step`` writes the new state into the cache it is given, in
 place, and returns it with ``pos + 1``.
+
+Under the model axis (strategies ``tp_dp`` and ``tp_sp``) the layers
+run on the rank's slices (``models.ssm``; zamba's shared block splits
+its attention heads and MLP as ``TransformerLM`` does) and return whole
+outputs, so the residual stream stays whole on every rank of the model
+axis.  Serving under rules follows ``TransformerLM``: ``prefill`` and
+``decode_step`` take the whole batch, cut it over "dp" and return whole
+logits; the cache is the rank's block of the reference's specs (``wkv``
+on its value dimension, ``ssd`` / ``conv`` on heads, zamba's ``k`` /
+``v`` on the sequence over "sp", or over every axis at batch 1;
+``tprev`` / ``cprev`` whole).  A recurrent scan runs the whole
+sequence, so a residual stream cut on it (``act_seq``, strategy
+``megatron_sp``) raises ``NotImplementedError``, as the reference never
+pairs them.
 """
 
 from __future__ import annotations
@@ -35,6 +49,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.sharding import gathered, hint
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm
@@ -44,6 +59,7 @@ from repro_torch.models.layers import (
     embed_tokens,
     init_mlp,
     init_norm,
+    tp_combine,
 )
 from repro_torch.models.transformer import (PARAM_SPECS, LanguageModel,
                                             _remat)
@@ -64,14 +80,39 @@ class _Recurrent(LanguageModel):
     SPECS = SPECS
     CONSTANTS = ssm.CONSTANT_INIT
 
+    def _whole_seq(self) -> None:
+        """Refuse a residual stream cut on the sequence (``act_seq``)."""
+        seq = self._seq()
+        if seq is not None:
+            raise NotImplementedError(
+                f"{self.cfg.name}: the residual stream cut on the sequence "
+                f"over {seq.size} ranks (act_seq, strategy "
+                f"{shd.active_rules().strategy!r}): a recurrent scan runs "
+                "the whole sequence")
+
+    def refuse_compressed_model_axis(self, rules) -> None:
+        """No run of the reference holds a recurrent family's split
+        layers under the compressed step, so it refuses them."""
+        raise NotImplementedError(
+            f"{self.cfg.name}: the compressed step over a model axis of "
+            f"{shd.axes_size(rules.mesh, rules.table['tp'])} (strategy "
+            f"{rules.strategy!r}) does not run a recurrent family's "
+            "tensor-parallel layers")
+
     def _loss_head(self, h: torch.Tensor, labels: torch.Tensor):
         return self._objective(h, labels, torch.zeros(
             (), dtype=torch.float32, device=h.device))
 
-    def _empty_cache(self, batch: int, seq: int) -> dict:
-        shapes, _ = self.abstract_cache(batch, seq)
-        return {k: torch.empty(s.shape, dtype=s.dtype, device=self.device)
-                for k, s in shapes.items() if k != "pos"}
+    def _put(self, cache: dict, key: str, index, value: torch.Tensor,
+             lead: tuple) -> None:
+        """``cache[key][index] = value``, the leaf made at its first write
+        in the abstract cache's dtype with ``lead`` stacked axes in front
+        of the value's shape (the rank's block)."""
+        if key not in cache:
+            dtype = self.abstract_cache(1, 1)[0][key].dtype
+            cache[key] = torch.empty((*lead, *value.shape), dtype=dtype,
+                                     device=value.device)
+        cache[key][index] = value
 
 
 # ==========================================================================
@@ -118,6 +159,7 @@ class RWKVModel(_Recurrent):
             return self._block(blk, h)[0]
 
     def loss(self, batch):
+        self._whole_seq()
         with gathered(self.embed, "tok"), gathered(self.ln_in):
             h = self._embed(batch["tokens"])
         block = _remat(self._train_block, self.remat)
@@ -141,40 +183,56 @@ class RWKVModel(_Recurrent):
                  "pos": ()}
         return cache, specs
 
-    def prefill(self, batch):
-        """Process a full prompt; returns (last-token logits, cache)."""
-        tokens = batch["tokens"]
-        h = self._embed(tokens)
-        cache = self._empty_cache(h.shape[0], h.shape[1])
+    def _serve_embed(self, tokens: torch.Tensor):
+        """(dp group, the rank's embedded and normed tokens) of a whole
+        serving batch."""
+        self._whole_seq()
+        dp, _ = self._serve_groups(tokens.shape[0])
+        tokens = self._rank_batch({"tokens": tokens})["tokens"]
+        with gathered(self.embed, "tok"), gathered(self.ln_in):
+            return dp, self._embed(tokens)
+
+    def prefill(self, batch, max_seq: int | None = None):
+        """Process a full prompt; returns (last-token logits, cache).  No
+        leaf has a sequence axis: ``max_seq`` is unused.  Under active
+        rules ``batch`` is the whole batch; the cache is the rank's block
+        and the logits whole."""
+        dp, h = self._serve_embed(batch["tokens"])
+        L = len(self.blocks)
+        cache: dict = {}
         for i, blk in enumerate(self.blocks):
-            h, (wkv, tprev, cprev) = self._block(blk, h, collect=True)
-            cache["wkv"][i], cache["tprev"][i], cache["cprev"][i] = \
-                wkv, tprev, cprev
-        cache["pos"] = torch.tensor(tokens.shape[1], dtype=torch.int32,
-                                    device=h.device)
-        return self._logits(h), cache
+            with gathered(blk):
+                h, (wkv, tprev, cprev) = self._block(blk, h, collect=True)
+            for key, value in (("wkv", wkv), ("tprev", tprev),
+                               ("cprev", cprev)):
+                self._put(cache, key, i, value, (L,))
+        cache["pos"] = torch.tensor(batch["tokens"].shape[1],
+                                    dtype=torch.int32, device=h.device)
+        return self._serve_logits(h, dp), cache
 
     def decode_step(self, tokens: torch.Tensor, cache: dict):
         """tokens: (B, 1) int32.  Returns (logits (B, V), cache), the
-        cache's entries written in place."""
+        cache's entries written in place.  Under active rules ``tokens``
+        are the whole batch's and ``cache`` the rank's block."""
         cfg = self.cfg
-        h = self._embed(tokens)
+        dp, h = self._serve_embed(tokens)
         wkv, tprev, cprev = cache["wkv"], cache["tprev"], cache["cprev"]
         for i, blk in enumerate(self.blocks):
-            a_in = apply_norm(cfg, blk.ln1, h)
-            t_out, state = ssm.rwkv6_tmix_decode(
-                cfg, blk.tmix, a_in, tprev[i][:, None].to(a_in.dtype),
-                wkv[i])
-            h = h + t_out
-            m_in = apply_norm(cfg, blk.ln2, h)
-            h = h + ssm.rwkv6_cmix(cfg, blk.cmix, m_in,
-                                   cprev[i][:, None].to(m_in.dtype))
+            with gathered(blk):
+                a_in = apply_norm(cfg, blk.ln1, h)
+                t_out, state = ssm.rwkv6_tmix_decode(
+                    cfg, blk.tmix, a_in, tprev[i][:, None].to(a_in.dtype),
+                    wkv[i])
+                h = h + t_out
+                m_in = apply_norm(cfg, blk.ln2, h)
+                h = h + ssm.rwkv6_cmix(cfg, blk.cmix, m_in,
+                                       cprev[i][:, None].to(m_in.dtype))
             wkv[i].copy_(state)
             tprev[i].copy_(a_in[:, 0])
             cprev[i].copy_(m_in[:, 0])
         new_cache = {k: v for k, v in cache.items() if k != "pos"}
         new_cache["pos"] = cache["pos"] + 1
-        return self._logits(h), new_cache
+        return self._serve_logits(h, dp), new_cache
 
 
 # ==========================================================================
@@ -219,10 +277,22 @@ class ZambaModel(_Recurrent):
         a_in = hint(apply_norm(cfg, sh.ln1, h), "dp", None, None)
         a_out, kv = attn.gqa_forward(cfg, sh.attn, a_in, positions,
                                      kv_out=kv_out)
-        h = hint(h + a_out, "dp", "act_seq", None)
+        h = hint(h + self._heads_tp(a_out), "dp", "act_seq", None)
         m_in = apply_norm(cfg, sh.ln2, h)
-        h = hint(h + apply_mlp(cfg, sh.mlp, m_in), "dp", "act_seq", None)
+        h = hint(h + self._mlp_tp(apply_mlp(cfg, sh.mlp, m_in)), "dp",
+                 "act_seq", None)
         return h, kv
+
+    def _heads_tp(self, out: torch.Tensor) -> torch.Tensor:
+        """The shared attention's output added up over the model axis
+        where its heads are split."""
+        tp = shd.tp_group(self.cfg.n_heads, self.shared.attn["wq"].shape[1])
+        return tp_combine(out, tp, None)
+
+    def _mlp_tp(self, out: torch.Tensor) -> torch.Tensor:
+        """The shared MLP's output added up where its d_ff is split."""
+        tp = shd.tp_group(self.cfg.d_ff, self.shared.mlp["w1"].shape[1])
+        return tp_combine(out, tp, None)
 
     def _group(self, layers: nn.ModuleList, h, positions,
                collect: bool = False):
@@ -248,6 +318,7 @@ class ZambaModel(_Recurrent):
 
     def loss(self, batch):
         cfg = self.cfg
+        self._whole_seq()
         with gathered(self.embed, "tok"):
             h = hint(embed_tokens(self.embed, batch["tokens"],
                                   cfg.compute_dtype), "dp", "act_seq", None)
@@ -279,42 +350,71 @@ class ZambaModel(_Recurrent):
                  "pos": ()}
         return cache, specs
 
-    def prefill(self, batch):
-        """Process a full prompt; returns (last-token logits, cache)."""
+    def _serve_embed(self, tokens: torch.Tensor):
+        """(dp and sp groups, the rank's embedded tokens) of a whole
+        serving batch."""
+        self._whole_seq()
+        dp, sp = self._serve_groups(tokens.shape[0])
+        tokens = self._rank_batch({"tokens": tokens})["tokens"]
+        with gathered(self.embed, "tok"):
+            return dp, sp, embed_tokens(self.embed, tokens,
+                                        self.cfg.compute_dtype)
+
+    def prefill(self, batch, max_seq: int | None = None):
+        """Process a full prompt; returns (last-token logits, cache), the
+        attention cache ``max_seq`` positions long (default: the
+        prompt's), zeros past the prompt.  Under active rules ``batch``
+        is the whole batch; the cache is the rank's block and the logits
+        whole."""
         cfg = self.cfg
-        h = embed_tokens(self.embed, batch["tokens"], cfg.compute_dtype)
+        dp, sp, h = self._serve_embed(batch["tokens"])
         S = h.shape[1]
+        S_loc, lo, hi, past = self._seq_block(S, max_seq, sp)
         positions = self._positions(h)
-        cache = self._empty_cache(h.shape[0], S)
+        G, Kn = self.n_groups, self.n_inner
+        alloc = torch.zeros if past else torch.empty
+        kv_cache = {key: alloc((G, h.shape[0], S_loc, cfg.n_kv_heads,
+                                cfg.head_dim), dtype=cfg.compute_dtype,
+                               device=h.device) for key in ("k", "v")}
+        cache: dict = {}
         for g, layers in enumerate(self.mamba):
-            h, states, (k, v) = self._group(layers, h, positions,
+            with gathered(layers), gathered(self.shared):
+                h, states, kv = self._group(layers, h, positions,
                                             collect=True)
             for j, state in enumerate(states):
-                cache["ssd"][g, j], cache["conv"][g, j] = \
-                    state["ssd"], state["conv"]
-            cache["k"][g], cache["v"][g] = k, v
+                for key in ("ssd", "conv"):
+                    self._put(cache, key, (g, j), state[key], (G, Kn))
+            if hi > lo:
+                for key, x in zip(("k", "v"), kv):
+                    kv_cache[key][g, :, :hi - lo] = x[:, lo:hi]
+        cache.update(kv_cache)
         cache["pos"] = torch.tensor(S, dtype=torch.int32, device=h.device)
-        return self._logits(h), cache
+        return self._serve_logits(h, dp), cache
 
     def decode_step(self, tokens: torch.Tensor, cache: dict):
         """tokens: (B, 1) int32.  Returns (logits (B, V), cache), the
-        cache's entries written in place."""
+        cache's entries written in place.  Under active rules ``tokens``
+        are the whole batch's and ``cache`` the rank's block."""
         cfg, sh = self.cfg, self.shared
         pos = cache["pos"]
-        h = embed_tokens(self.embed, tokens, cfg.compute_dtype)
+        dp, sp, h = self._serve_embed(tokens)
         ssd, conv = cache["ssd"], cache["conv"]
         for g, layers in enumerate(self.mamba):
-            for j, lyr in enumerate(layers):
-                out, state = ssm.mamba2_decode(
-                    cfg, lyr.mamba, apply_norm(cfg, lyr.ln, h),
-                    {"ssd": ssd[g, j], "conv": conv[g, j]})
-                h = h + out
-                ssd[g, j].copy_(state["ssd"])
-                conv[g, j].copy_(state["conv"])
-            a_in = apply_norm(cfg, sh.ln1, h)
-            h = h + attn.gqa_decode(cfg, sh.attn, a_in, pos, cache["k"][g],
-                                    cache["v"][g])[0]
-            h = h + apply_mlp(cfg, sh.mlp, apply_norm(cfg, sh.ln2, h))
+            with gathered(layers):
+                for j, lyr in enumerate(layers):
+                    out, state = ssm.mamba2_decode(
+                        cfg, lyr.mamba, apply_norm(cfg, lyr.ln, h),
+                        {"ssd": ssd[g, j], "conv": conv[g, j]})
+                    h = h + out
+                    ssd[g, j].copy_(state["ssd"])
+                    conv[g, j].copy_(state["conv"])
+            with gathered(sh):
+                a_in = apply_norm(cfg, sh.ln1, h)
+                h = h + attn.gqa_decode(cfg, sh.attn, a_in, pos,
+                                        cache["k"][g], cache["v"][g],
+                                        sp=sp)[0]
+                h = h + self._mlp_tp(apply_mlp(cfg, sh.mlp,
+                                               apply_norm(cfg, sh.ln2, h)))
         new_cache = {k: v for k, v in cache.items() if k != "pos"}
         new_cache["pos"] = pos + 1
-        return self._logits(h), new_cache
+        return self._serve_logits(h, dp), new_cache

@@ -30,6 +30,30 @@ Where the port has to choose, it chooses the reference's numbers:
 A chunk is ``min(chunk, S)`` tokens and ``S`` must be a multiple of it;
 the port raises ``ValueError`` where the reference asserts.
 
+Under the model axis (``distributed.sharding``, strategies ``tp_dp``
+and ``tp_sp``) each layer runs on the rank's slice of its ``tp`` leaves,
+the split read from their block shapes (``sharding.tp_group``; leaves
+that must agree and do not raise ``ValueError``):
+
+* Mamba2 splits heads: ``wz`` / ``wx`` / ``conv_w`` / ``norm_scale`` /
+  ``wo`` hold the rank's heads, ``wB`` / ``wC`` / ``wdt`` are whole, so
+  ``dt`` comes out for every head and is cut to the rank's, as are
+  ``dt_bias``, ``A_log`` and ``D_skip`` (inside autograd: their
+  gradients are nonzero on the rank's heads, and the sum over the model
+  axis adds them up).  The chunk step is per head; the gated norm is
+  within a head; ``wo``'s output is a partial sum.
+* RWKV6 splits the value head dimension: ``wv`` / ``wg`` /
+  ``ln_scale`` / ``wo`` hold the rank's value columns, ``r``, ``k`` and
+  the decay are whole, and the WKV state is the rank's (B, H, P,
+  P_local) block, with no collective in the chunk step.  The per-head
+  norm's mean square over the value dimension adds the ranks' sums of
+  squares (``sharding.all_reduce``) over the whole P.  The channel mix
+  splits d_ff (``wk_c`` / ``wv_c``) and all-reduces ``h @ wv_c`` before
+  the receptance gate multiplies it.
+
+Each partial output is added up by ``layers.tp_combine``, so a layer
+returns the whole output on every rank.
+
 Parameters live in ``nn.ParameterDict``s with the reference's leaf
 names, shapes and dtypes; the model's ``init`` fills them.
 """
@@ -42,7 +66,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import _param
+from repro_torch.distributed import sharding as shd
+from repro_torch.models.layers import _param, tp_combine
 
 # logical-axis specs of each (part, leaf), as ``init_mamba2`` /
 # ``init_rwkv6`` give them
@@ -94,6 +119,20 @@ def _scan_chunks(step, state: torch.Tensor, chunks) -> tuple:
             state, y = step(state, *xs)
         ys.append(y)
     return state, torch.cat(ys, dim=1)
+
+
+def _split(p, whole: int, leaves) -> tuple:
+    """(``tp`` group or None, the rank's count) of a layer whose split
+    dimension of ``whole`` entries is ``leaves[0]``'s; ``leaves`` are
+    (name, dimension) pairs that must hold the same count."""
+    (name, dim), *rest = leaves
+    n = p[name].shape[dim]
+    for other, d in rest:
+        if p[other].shape[d] != n:
+            raise ValueError(f"{other} holds {p[other].shape[d]} of {whole} "
+                             f"entries on dimension {d}, {name} {n}: the "
+                             "model axis splits them alike")
+    return shd.tp_group(whole, n), n
 
 
 def _shift(x: torch.Tensor, i: int) -> torch.Tensor:
@@ -150,12 +189,26 @@ def _mamba_gated_out(p, y: torch.Tensor, z: torch.Tensor, x_dtype):
     return torch.einsum("bshp,hpd->bsd", y.to(x_dtype), p["wo"])
 
 
-def _mamba_proj(p, x: torch.Tensor):
+_MAMBA_TP = (("wz", 1), ("wx", 1), ("conv_w", 1), ("norm_scale", 0),
+             ("wo", 0))
+
+
+def _mamba_heads(cfg: ArchConfig, p) -> tuple:
+    """(``tp`` group or None, the rank's head range as a slice)."""
+    _, H, _, _ = mamba_dims(cfg)
+    tp, n = _split(p, H, _MAMBA_TP)
+    h0 = 0 if tp is None else tp.index * n
+    return tp, slice(h0, h0 + n)
+
+
+def _mamba_proj(p, x: torch.Tensor, heads: slice = slice(None)):
+    """z and x of the rank's heads (``wz`` / ``wx`` hold them), B and C,
+    and ``dt`` cut to ``heads`` from every head's."""
     z = torch.einsum("bsd,dhp->bshp", x, p["wz"])
     xs = torch.einsum("bsd,dhp->bshp", x, p["wx"])
     B_ = x @ p["wB"]
     C_ = x @ p["wC"]
-    dt = F.softplus((x @ p["wdt"]).float() + p["dt_bias"])
+    dt = F.softplus((x @ p["wdt"]).float() + p["dt_bias"])[..., heads]
     return z, xs, B_, C_, dt
 
 
@@ -191,20 +244,21 @@ def mamba2_forward(cfg: ArchConfig, p, x: torch.Tensor,
     (out, None) or, with ``state_out``, (out, {"ssd", "conv"})."""
     s = cfg.ssm
     B, S, _ = x.shape
-    _, H, Pd, N = mamba_dims(cfg)
+    _, _, Pd, N = mamba_dims(cfg)
     c = _chunk(S, s.chunk)
 
-    z, xs_raw, B_, C_, dt = _mamba_proj(p, x)
+    tp, heads = _mamba_heads(cfg, p)
+    z, xs_raw, B_, C_, dt = _mamba_proj(p, x, heads)
     xs = F.silu(_causal_conv(xs_raw, p["conv_w"]))
-    a_log = -torch.exp(p["A_log"]) * dt               # (B,S,H), <= 0
+    a_log = -torch.exp(p["A_log"][heads]) * dt        # (B,S,H), <= 0
 
     if state_in is None:
-        state_in = torch.zeros((B, H, Pd, N), dtype=torch.float32,
+        state_in = torch.zeros((B, xs.shape[2], Pd, N), dtype=torch.float32,
                                device=x.device)
     state, y = _scan_chunks(_ssd_chunk, state_in, [
         t.split(c, dim=1) for t in (xs, B_, C_, dt, a_log)])
-    y = y + p["D_skip"][:, None] * xs.float()
-    out = _mamba_gated_out(p, y, z, x.dtype)
+    y = y + p["D_skip"][heads][:, None] * xs.float()
+    out = tp_combine(_mamba_gated_out(p, y, z, x.dtype), tp, None)
     if state_out:
         conv_state = xs_raw[:, S - (s.d_conv - 1):]   # pre-conv tail
         return out, {"ssd": state, "conv": conv_state}
@@ -222,18 +276,20 @@ def init_mamba2_state(cfg: ArchConfig, batch: int, dtype=torch.float32,
 
 
 def mamba2_decode(cfg: ArchConfig, p, x: torch.Tensor, state: dict):
-    """One-token recurrence.  x: (B,1,D).  Returns (out, new state)."""
-    z, xs, B_, C_, dt = _mamba_proj(p, x)
+    """One-token recurrence.  x: (B,1,D); the state's heads are the
+    rank's.  Returns (out, new state)."""
+    tp, heads = _mamba_heads(cfg, p)
+    z, xs, B_, C_, dt = _mamba_proj(p, x, heads)
     window = torch.cat([state["conv"], xs.to(state["conv"].dtype)],
                        dim=1)                         # (B, K, H, P)
     xs = F.silu(torch.einsum("bkhp,khp->bhp", window, p["conv_w"]))[:, None]
-    a = torch.exp(-torch.exp(p["A_log"]) * dt[:, 0])  # (B,H)
+    a = torch.exp(-torch.exp(p["A_log"][heads]) * dt[:, 0])   # (B,H)
     kv = ((xs[:, 0].float() * dt[:, 0, :, None])[..., None]
           * B_[:, 0].float()[:, None, None, :])
     h = a[:, :, None, None] * state["ssd"] + kv
     y = torch.einsum("bn,bhpn->bhp", C_[:, 0].float(), h)[:, None]
-    y = y + p["D_skip"][:, None] * xs.float()
-    out = _mamba_gated_out(p, y, z, x.dtype)
+    y = y + p["D_skip"][heads][:, None] * xs.float()
+    out = tp_combine(_mamba_gated_out(p, y, z, x.dtype), tp, None)
     return out, {"ssd": h, "conv": window[:, 1:]}
 
 
@@ -287,12 +343,23 @@ def _rwkv_project(p, x: torch.Tensor, x_prev: torch.Tensor):
     return r, k, v, g, logw
 
 
-def _rwkv_out(p, wkv: torch.Tensor, g: torch.Tensor, r_dtype):
+_RWKV_TP = (("wv", 2), ("wg", 2), ("ln_scale", 1), ("wo", 1))
+
+
+def _rwkv_out(p, wkv: torch.Tensor, g: torch.Tensor, r_dtype, tp=None):
+    """The per-head norm, gate and ``wo``.  With ``tp`` the value
+    dimension is the rank's slice: the mean square adds the ranks' sums
+    of squares, and the output is added up over the group."""
     yf = wkv.float()
-    ms = yf.square().mean(-1, keepdim=True)
+    if tp is None:
+        ms = yf.square().mean(-1, keepdim=True)
+    else:
+        ms = shd.all_reduce(yf.square().sum(-1, keepdim=True),
+                            tp.group) / (yf.shape[-1] * tp.size)
     y = yf * torch.rsqrt(ms + 1e-5) * p["ln_scale"]
     y = y * F.silu(g.float())
-    return torch.einsum("bshp,hpd->bsd", y.to(r_dtype), p["wo"])
+    return tp_combine(torch.einsum("bshp,hpd->bsd", y.to(r_dtype), p["wo"]),
+                      tp, None)
 
 
 def _wkv_chunk(u, S0, rk, kk, vk, lw):
@@ -329,9 +396,10 @@ def rwkv6_tmix(cfg: ArchConfig, p, x: torch.Tensor,
     H, Pd = cfg.n_heads, cfg.head_dim
     c = _chunk(S, cfg.ssm.chunk if cfg.ssm else 32)
 
+    tp, n = _split(p, Pd, _RWKV_TP)
     r, k, v, g, logw = _rwkv_project(p, x, _shift(x, 1))
     if state_in is None:
-        state_in = torch.zeros((B, H, Pd, Pd), dtype=torch.float32,
+        state_in = torch.zeros((B, H, Pd, n), dtype=torch.float32,
                                device=x.device)
 
     def step(S0, rk, kk, vk, lw):
@@ -339,14 +407,15 @@ def rwkv6_tmix(cfg: ArchConfig, p, x: torch.Tensor,
 
     state, wkv = _scan_chunks(step, state_in,
                               [t.split(c, dim=1) for t in (r, k, v, logw)])
-    out = _rwkv_out(p, wkv, g, x.dtype)
+    out = _rwkv_out(p, wkv, g, x.dtype, tp)
     return out, (state if state_out else None)
 
 
 def rwkv6_tmix_decode(cfg: ArchConfig, p, x: torch.Tensor,
                       x_prev: torch.Tensor, state: torch.Tensor):
-    """One-step WKV.  x, x_prev: (B,1,D); state: (B,H,P,P).  Returns
-    (out, new state)."""
+    """One-step WKV.  x, x_prev: (B,1,D); state: (B,H,P,P), its value
+    dimension the rank's.  Returns (out, new state)."""
+    tp, _ = _split(p, cfg.head_dim, _RWKV_TP)
     r, k, v, g, logw = _rwkv_project(p, x, x_prev)
     rk, kk, vk = r[:, 0].float(), k[:, 0].float(), v[:, 0].float()
     w = torch.exp(logw[:, 0])                         # (B,H,P)
@@ -354,15 +423,19 @@ def rwkv6_tmix_decode(cfg: ArchConfig, p, x: torch.Tensor,
     out_state = state + p["u"][..., None] * kv
     wkv = torch.einsum("bhp,bhpq->bhq", rk, out_state)[:, None]
     new_state = w[..., None] * state + kv
-    return _rwkv_out(p, wkv, g, x.dtype), new_state
+    return _rwkv_out(p, wkv, g, x.dtype, tp), new_state
 
 
 def rwkv6_cmix(cfg: ArchConfig, p, x: torch.Tensor,
                x_prev: torch.Tensor | None = None) -> torch.Tensor:
-    """Channel mix with token shift.  x: (B,S,D)."""
+    """Channel mix with token shift.  x: (B,S,D).  With ``wk_c`` /
+    ``wv_c`` the rank's d_ff slice, ``h @ wv_c`` is added up over the
+    model axis before the gate multiplies it."""
     if x_prev is None:
         x_prev = _shift(x, 1)
+    tp, _ = _split(p, cfg.d_ff, (("wk_c", 1), ("wv_c", 0)))
     xk = _lerp(x, x_prev, p["mu_ck"])
     xr = _lerp(x, x_prev, p["mu_cr"])
     h = torch.square(F.relu(xk @ p["wk_c"]))
-    return torch.sigmoid(xr @ p["wr_c"]) * (h @ p["wv_c"])
+    return torch.sigmoid(xr @ p["wr_c"]) * tp_combine(h @ p["wv_c"], tp,
+                                                      None)

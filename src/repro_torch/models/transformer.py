@@ -173,7 +173,6 @@ class LanguageModel(nn.Module):
 
     SPECS: dict = {}                 # (part, leaf) -> logical-axis spec
     CONSTANTS: dict[str, float] = {}  # leaves initialised to a constant
-    TENSOR_PARALLEL = False           # layers realise a ``tp`` split
 
     def __init__(self, cfg: ArchConfig, remat: str, device):
         super().__init__()
@@ -213,6 +212,11 @@ class LanguageModel(nn.Module):
         stream is cut on the sequence over it (None: whole)."""
         return shd.logical_group(shd.active_rules(), "act_seq")
 
+    def refuse_compressed_model_axis(self, rules) -> None:
+        """Raise ``NotImplementedError`` where the compressed step
+        (``distributed.compression``) must not run this model's layers
+        split over the model axis of ``rules``; these it runs."""
+
     def _objective(self, h: torch.Tensor, labels: torch.Tensor,
                    aux: torch.Tensor):
         """(loss, metrics) of the last hidden state: final norm, chunked
@@ -244,13 +248,65 @@ class LanguageModel(nn.Module):
         return {k: torch.zeros(s.shape, dtype=s.dtype, device=self.device)
                 for k, s in shapes.items()}
 
+    # ------------------------------------------------ serving under rules
+    @staticmethod
+    def _serve_groups(batch: int):
+        """(dp, sp) groups of a serving batch of ``batch`` sequences: the
+        batch cut over "dp" and the cache's sequence over "sp", or, for
+        one sequence, the batch whole and the sequence over every axis
+        (the reference's ``abstract_cache`` specs)."""
+        rules = shd.active_rules()
+        if batch == 1:
+            return None, shd.logical_group(rules, "all")
+        return (shd.logical_group(rules, "dp"),
+                shd.logical_group(rules, "sp"))
+
+    @staticmethod
+    def _rank_batch(batch: dict) -> dict:
+        """This rank's block of a whole serving batch over "dp"."""
+        rules = shd.active_rules()
+        if rules is None:
+            return batch
+        from repro_torch.models.inputs import shard_batch
+        return shard_batch(batch, rules)
+
+    def _serve_logits(self, h: torch.Tensor, dp) -> torch.Tensor:
+        """The last position's logits, whole (B, V) on every rank: the
+        sequence gathered where it is cut, the vocabulary slices and the
+        batch blocks all-gathered."""
+        seq = self._seq()
+        h = shd.all_gather(h, 1, seq and seq.group)
+        with gathered(self.final_norm), gathered(self.embed, "head"):
+            logits = self._logits(h)
+            tp = shd.tp_group(self.cfg.vocab_size,
+                              self.embed["head"].shape[1])
+        if tp is not None:
+            logits = shd.all_gather_dim(logits, 1, tp.group)
+        if dp is not None:
+            logits = shd.all_gather_dim(logits, 0, dp.group)
+        return logits
+
+    @staticmethod
+    def _seq_block(S: int, max_seq: int | None, sp) -> tuple:
+        """(positions a rank's cache block holds, the prompt's part of
+        them as [lo, hi) in the prompt, whether the block reaches past
+        the prompt) of a ``max_seq`` cache (default: the prompt's ``S``)
+        cut over ``sp``."""
+        n, at = (1, 0) if sp is None else (sp.size, sp.index)
+        total = max_seq or S
+        if total < S or total % n:
+            raise ValueError(f"a cache of {total} positions for a prompt of "
+                             f"{S} in {n} blocks")
+        S_loc = total // n
+        lo, hi = at * S_loc, min((at + 1) * S_loc, S)
+        return S_loc, lo, hi, S_loc * (at + 1) > S
+
 
 class TransformerLM(LanguageModel):
     """Families dense, moe (GQA or MLA), audio (frame embeds in) and vlm
     (patch + text)."""
 
     SPECS = PARAM_SPECS
-    TENSOR_PARALLEL = True
 
     def __init__(self, cfg: ArchConfig, remat: str = "full",
                  device="cuda"):
@@ -364,44 +420,6 @@ class TransformerLM(LanguageModel):
         specs["pos"] = ()
         return cache, specs
 
-    # ------------------------------------------------ serving under rules
-    @staticmethod
-    def _serve_groups(batch: int):
-        """(dp, sp) groups of a serving batch of ``batch`` sequences: the
-        batch cut over "dp" and the cache's sequence over "sp", or, for
-        one sequence, the batch whole and the sequence over every axis
-        (the reference's ``abstract_cache`` specs)."""
-        rules = shd.active_rules()
-        if batch == 1:
-            return None, shd.logical_group(rules, "all")
-        return (shd.logical_group(rules, "dp"),
-                shd.logical_group(rules, "sp"))
-
-    @staticmethod
-    def _rank_batch(batch: dict) -> dict:
-        """This rank's block of a whole serving batch over "dp"."""
-        rules = shd.active_rules()
-        if rules is None:
-            return batch
-        from repro_torch.models.inputs import shard_batch
-        return shard_batch(batch, rules)
-
-    def _serve_logits(self, h: torch.Tensor, dp) -> torch.Tensor:
-        """The last position's logits, whole (B, V) on every rank: the
-        sequence gathered where it is cut, the vocabulary slices and the
-        batch blocks all-gathered."""
-        seq = self._seq()
-        h = shd.all_gather(h, 1, seq and seq.group)
-        with gathered(self.final_norm), gathered(self.embed, "head"):
-            logits = self._logits(h)
-            tp = shd.tp_group(self.cfg.vocab_size,
-                              self.embed["head"].shape[1])
-        if tp is not None:
-            logits = shd.all_gather_dim(logits, 1, tp.group)
-        if dp is not None:
-            logits = shd.all_gather_dim(logits, 0, dp.group)
-        return logits
-
     def prefill(self, batch, max_seq: int | None = None):
         """Process a full prompt; returns (last-token logits, cache), the
         cache ``max_seq`` positions long (default: the prompt's), zeros
@@ -417,20 +435,14 @@ class TransformerLM(LanguageModel):
         seq = self._seq()
         positions = self._positions(h, 1 if seq is None else seq.size)
         S = positions.shape[1]
-        n, at = (1, 0) if sp is None else (sp.size, sp.index)
-        total = max_seq or S
-        if total < S or total % n:
-            raise ValueError(f"a cache of {total} positions for a prompt of "
-                             f"{S} in {n} blocks")
-        S_loc = total // n
-        lo, hi = at * S_loc, min((at + 1) * S_loc, S)   # the prompt's part
+        S_loc, lo, hi, past = self._seq_block(S, max_seq, sp)
         mla = cfg.attention == "mla"
         if mla:
             m = cfg.mla
             tails = ((m.kv_lora_rank,), (m.qk_rope_head_dim,))
         else:
             tails = ((cfg.n_kv_heads, cfg.head_dim),) * 2
-        alloc = torch.zeros if S_loc * (at + 1) > S else torch.empty
+        alloc = torch.zeros if past else torch.empty
         c1, c2 = (alloc((cfg.n_layers, h.shape[0], S_loc, *t),
                         dtype=cfg.compute_dtype, device=h.device)
                   for t in tails)
@@ -447,6 +459,10 @@ class TransformerLM(LanguageModel):
         elif KV_CACHE_QUANT:
             kq, k_scale = attn.quantize_kv(c1)
             vq, v_scale = attn.quantize_kv(c2)
+            # positions past the prompt hold zeros, scales included, as
+            # the serve engine grows a prompt-long cache
+            k_scale[:, :, max(hi - lo, 0):] = 0
+            v_scale[:, :, max(hi - lo, 0):] = 0
             cache = {"k": kq, "v": vq, "k_scale": k_scale,
                      "v_scale": v_scale}
         else:
@@ -485,7 +501,7 @@ class TransformerLM(LanguageModel):
         elif quant:
             a_out = attn.gqa_decode_q8(
                 cfg, blk.attn, a_in, pos, cache["k"][i], cache["v"][i],
-                cache["k_scale"][i], cache["v_scale"][i])[0]
+                cache["k_scale"][i], cache["v_scale"][i], sp=sp)[0]
         else:
             a_out = attn.gqa_decode(cfg, blk.attn, a_in, pos,
                                     cache["k"][i], cache["v"][i], sp=sp)[0]

@@ -29,9 +29,11 @@ from repro_torch.core.session import ScanSession
 from repro_torch.core.store import ObjectStore
 from repro_torch.serve import kvcache, steps
 
-# cache leaves with a sequence axis (axis 2 of (L, B, S, ...)); others,
-# such as ``pos`` and the int8 scales, are parked whole
-_SEQ_LEAVES = ("'k'", "'v'", "'ckv'", "'krope'")
+# cache leaves with a sequence axis (axis 2 of (L, B, S, ...)), the int8
+# cache's scales among them (the reference grows and tags neither, so its
+# int8 cache cannot decode through its engine); others, such as ``pos``,
+# are parked whole
+_SEQ_LEAVES = ("k", "v", "k_scale", "v_scale", "ckv", "krope")
 
 
 @dataclasses.dataclass
@@ -120,7 +122,7 @@ class ServeEngine:
         """Grow sequence-axis leaves from prompt length to max_seq so
         decode has slots to write into."""
         out = dict(cache)
-        for key in ("k", "v", "ckv", "krope"):
+        for key in _SEQ_LEAVES:
             if key in out:
                 arr = out[key]
                 pad = self.max_seq - arr.shape[2]
@@ -137,7 +139,7 @@ class ServeEngine:
             raise RuntimeError("no store attached")
         cache = self._last_cache if cache is None else cache
         seq_axes = {key: 2 for key, _ in pytree.flatten_with_keys(cache)
-                    if any(tag in key for tag in _SEQ_LEAVES)}
+                    if any(f"'{leaf}'" in key for leaf in _SEQ_LEAVES)}
         kvcache.cache_to_objects(self.store, cache, session,
                                  seq_axes=seq_axes)
 

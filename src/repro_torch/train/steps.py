@@ -17,8 +17,7 @@ reduce-scatters the gradients back to the blocks and updates them
 there; its metrics are the reference's, equal on every rank.  A spec
 may cut a parameter on a ``tp`` dimension as well (``megatron_sp``,
 ``tp_dp``): that slice is never gathered, the layers run on it
-(``models.transformer``), and a model without tensor-parallel layers
-(``TENSOR_PARALLEL`` False: the recurrent families) raises there.
+(``models.transformer``, ``models.recurrent``).
 ``shard_params`` cuts the parameters alone, for serving (``tp_sp``).
 """
 
@@ -134,14 +133,12 @@ def shard_params(model, rules: shd.MeshRules) -> dict:
     its fitted spec under ``rules`` (it keeps its object, holding its
     block, marked with its logical spec and whole shape: ``sharding.
     mark_sharded``); returns ``{name: sharding}``, each block's
-    ``Sharding``.  A spec the model cannot realise raises
-    (``sharding.param_layout``): a ``tp`` dimension on an axis larger
-    than 1 for a model whose ``TENSOR_PARALLEL`` is False.  Every rank
-    calls it together: it makes the process groups the model will use."""
+    ``Sharding``.  A spec that cannot be realised raises
+    (``sharding.param_layout``).  Every rank calls it together: it makes
+    the process groups the model will use."""
     specs = param_specs(model)
-    tp = getattr(model, "TENSOR_PARALLEL", False)
     params = dict(model.named_parameters())
-    layouts = {name: shd.param_layout(rules, specs[name], p.shape, tp=tp)
+    layouts = {name: shd.param_layout(rules, specs[name], p.shape)
                for name, p in params.items()}    # every refusal first
     cuts = {}
     for name, p in params.items():
@@ -149,7 +146,7 @@ def shard_params(model, rules: shd.MeshRules) -> dict:
             if axes:
                 shd.axes_group(rules.mesh, axes)
         cuts[name] = rules.named(shd.fitted(rules, specs[name], p.shape))
-        shd.mark_sharded(p, specs[name], p.shape, tp)
+        shd.mark_sharded(p, specs[name], p.shape)
         p.data = shd.local_shard(p.data, cuts[name]).clone()
         shd.norm_group(p, rules)
     shd.objective_group(rules)

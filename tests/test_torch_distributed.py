@@ -338,22 +338,40 @@ def test_compressed_train_step_refuses_what_it_cannot_run(shape, names,
 
 
 def test_sharded_moe_refuses_autograd():
-    """The sharded MoE bodies now train (their collectives carry their
-    adjoints); what still refuses over a model axis of 2 is the int8 KV
-    cache's decode, which neither splits its heads nor combines a
-    sequence-sharded softmax."""
+    """The sharded MoE bodies train (their collectives carry their
+    adjoints), and the int8 KV cache's decode now splits its heads and
+    combines a sequence-sharded softmax (``tests/test_torch_tp_ssm.py``
+    holds it on ranks).  What it refuses is a head slice that the rules
+    do not cut; under rules whose model axis is 1 it is the plain
+    decode."""
     from repro_torch.models import attention as attn
     cfg = get_config("yi_9b", smoke=True)
     p = attn.init_attention(cfg, device="cpu")
+    g = torch.Generator().manual_seed(0)
+    for w in p.values():
+        with torch.no_grad():
+            w.normal_(generator=g)
     B, S, K, hd = 2, 8, cfg.n_kv_heads, cfg.head_dim
-    caches = (torch.zeros((B, S, K, hd), dtype=torch.int8),) * 2 + (
-        torch.ones((B, S, K)),) * 2
-    x = torch.zeros((B, 1, cfg.d_model))
-    rules = shd.MeshRules(_NamedMesh((2, 2), ("data", "model"), (0, 1)),
-                          strategy="tp_sp")
-    with shd.use_rules(rules):
-        with pytest.raises(NotImplementedError, match="model axis"):
-            attn.gqa_decode_q8(cfg, p, x, 0, *caches)
+    x = torch.randn((B, 1, cfg.d_model), generator=g)
+
+    def caches():
+        return [torch.zeros((B, S, K, hd), dtype=torch.int8)
+                for _ in range(2)] + [torch.zeros((B, S, K))
+                                      for _ in range(2)]
+    with torch.no_grad():
+        want = attn.gqa_decode_q8(cfg, p, x, 3, *[c.clone()
+                                                  for c in caches()])
+        rules = shd.MeshRules(_NamedMesh((2, 1), ("data", "model"), (1, 0)),
+                              strategy="tp_sp")
+        with shd.use_rules(rules):
+            got = attn.gqa_decode_q8(cfg, p, x, 3, *[c.clone()
+                                                     for c in caches()])
+            half = dict(p, wq=p["wq"][:, :cfg.n_heads // 2],
+                        wo=p["wo"][:cfg.n_heads // 2])
+            with pytest.raises(ValueError, match="slice"):
+                attn.gqa_decode_q8(cfg, half, x, 3, *caches())
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 # ============================================= 1. the pod all-reduce

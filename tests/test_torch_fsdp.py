@@ -409,43 +409,55 @@ def _fake_rules(shape, names, strategy, coord=None):
 
 @pytest.mark.parametrize("strategy", ["megatron_sp", "tp_sp", "tp_dp"])
 def test_fsdp_refuses_tensor_parallel_specs(strategy):
-    """A ``tp`` entry on a model axis of 2 is realised for the attention
-    families (the layer runs on the rank's slice: ``tests/
-    test_torch_tp.py``), not for the recurrent families: their layouts
-    and states raise; nothing falls back to replicated weights."""
+    """A ``tp`` entry on a model axis of 2 is realised by every family
+    (the layer runs on the rank's slice: ``tests/test_torch_tp.py`` for
+    the attention families, ``tests/test_torch_tp_ssm.py`` for the
+    recurrent ones); a parameter cut on a logical axis that is neither
+    storage nor ``tp``, or on two storage dimensions, still raises, and
+    nothing falls back to replicated weights."""
     rules = _fake_rules((2, 2), MESH2, strategy)
     layout = shd.param_layout(rules, ("fsdp", "tp"), (8, 8))
     assert (layout.tp_dim, layout.tp_axes) == (1, ("model",))
     assert shd.block_shape(layout, rules.mesh) == (4, 4)
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        shd.param_layout(rules, ("fsdp", "tp"), (8, 8), tp=False)
+    for logical in (("dp", None), ("sp", None)):
+        with pytest.raises(NotImplementedError, match="tensor-parallel"):
+            shd.param_layout(rules, logical, (8, 8))
+    with pytest.raises(NotImplementedError, match="two dimensions"):
+        shd.param_layout(rules, ("fsdp", "fsdp_expert"), (8, 8))
     for arch in ("rwkv6_3b", "zamba2_2p7b"):
         model = build_model(get_config(arch, smoke=True), device="cpu")
-        assert not model.TENSOR_PARALLEL
-        state = pt_steps.init_train_state(model,
-                                          torch.Generator().manual_seed(0))
-        with pytest.raises(NotImplementedError, match="tensor-parallel"):
-            pt_steps.shard_train_state(model, state, rules)
+        specs = pt_steps.param_specs(model)
+        split = {n for n, p in model.named_parameters()
+                 if shd.param_layout(rules, specs[n], p.shape).tp_axes}
+        assert split and all(specs[n].count("tp") == 1 for n in split)
         assert not any(shd.is_sharded(p) for p in model.parameters())
 
 
 def test_megatron_moe_body_still_refuses_autograd(monkeypatch):
-    """The megatron MoE body now trains (``tests/test_torch_tp.py`` holds
-    deepseek_v2_lite_16b's step against the reference's); what still
-    refuses under ``megatron_sp`` on a model axis of 2 is the int8 KV
-    cache's decode, here through grok1_314b's MoE blocks."""
+    """The megatron MoE body trains (``tests/test_torch_tp.py`` holds
+    deepseek_v2_lite_16b's step against the reference's), and the int8
+    KV cache decodes over a model axis (``tests/test_torch_tp_ssm.py``
+    holds yi_9b's on ranks); here grok1_314b's MoE blocks decode the
+    int8 cache under ``megatron_sp`` rules whose axes span one rank
+    exactly as without rules."""
     from repro_torch.models import transformer as pt_tr
 
     monkeypatch.setattr(pt_tr, "KV_CACHE_QUANT", True)
     cfg = get_config("grok1_314b", smoke=True)
     model = build_model(cfg, device="cpu")
-    assert model.TENSOR_PARALLEL and hasattr(model.blocks[0], "moe")
-    cache = model.init_cache(2, 8)
-    assert cache["k"].dtype == torch.int8
-    rules = _fake_rules((2, 2), MESH2, "megatron_sp", (1, 0))
-    with shd.use_rules(rules), torch.no_grad():
-        with pytest.raises(NotImplementedError, match="gqa_decode_q8"):
-            model.decode_step(torch.zeros((2, 1), dtype=torch.int32), cache)
+    model.init(torch.Generator().manual_seed(0))
+    assert hasattr(model.blocks[0], "moe")
+    tok = torch.tensor([[3], [7]], dtype=torch.int32)
+    prompt = torch.ones((2, 6), dtype=torch.int32)
+    with torch.no_grad():
+        _, cache = model.prefill({"tokens": prompt}, max_seq=8)
+        assert cache["k"].dtype == torch.int8
+        want, _ = model.decode_step(tok, {k: v.clone()
+                                          for k, v in cache.items()})
+        rules = _fake_rules((1, 1), MESH2, "megatron_sp")
+        with shd.use_rules(rules):
+            got, _ = model.decode_step(tok, cache)
+    assert torch.equal(got, want)
     assert not shd.in_gathered()
 
 

@@ -9,6 +9,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+from _threads import few_torch_threads  # noqa: F401
 
 from repro_torch import configs as pt_configs
 from repro_torch.configs import ARCH_IDS, SHAPES, get_config

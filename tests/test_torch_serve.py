@@ -213,6 +213,77 @@ def test_kv_sessions_move_between_packages_bit_equal():
         s.close()
 
 
+def _q8_engine(monkeypatch, quant: bool, store=None, max_seq=48):
+    """The port's engine over yi_9b's smoke model (seeded weights), the
+    port's int8 KV cache on or off, recording each step's logits."""
+    monkeypatch.setattr(pt_tr, "KV_CACHE_QUANT", quant)
+    model = build_model(get_config(ARCH, smoke=True), device="cpu")
+    model.init(torch.Generator().manual_seed(5))
+    eng = ServeEngine(model, max_seq=max_seq, store=store)
+    seen = []
+    prefill, decode = eng._prefill, eng._decode
+
+    def rec(fn):
+        def run(*args):
+            logits, cache = fn(*args)
+            seen.append(logits.clone())
+            return logits, cache
+        return run
+    eng._prefill, eng._decode = rec(prefill), rec(decode)
+    return eng, seen
+
+
+def test_q8_generate_matches_float_generate(monkeypatch):
+    """The int8 KV cache serves through the engine (its scales grow to
+    ``max_seq`` with ``k`` / ``v``, which the reference's engine does
+    not do, so it cannot decode q8 there): every step's logits within
+    5% of the float cache's largest, as the reference's
+    ``tests/test_models.py`` holds its q8 decode, and the same tokens."""
+    reqs = _pt_requests([7, 12, 4], 10, seed=4)
+    f32, want = _q8_engine(monkeypatch, False)
+    want_toks = f32.generate(reqs)
+    q8, got = _q8_engine(monkeypatch, True)
+    got_toks = q8.generate(reqs)
+    cache = q8._last_cache
+    assert cache["k"].dtype == torch.int8
+    for key in ("k", "v", "k_scale", "v_scale"):
+        assert cache[key].shape[2] == 48, key
+    assert len(got) == len(want) == 10
+    for i, (g, w) in enumerate(zip(got, want)):
+        rel = float((g - w).abs().max() / w.abs().max())
+        assert rel < 0.05, (i, rel)
+    for g, w in zip(got_toks, want_toks):
+        assert np.array_equal(g.tokens, w.tokens)
+
+
+def test_q8_session_parks_and_resumes(monkeypatch):
+    """A q8 session parked (``k`` / ``v`` and their scales paged on the
+    sequence axis) resumes bit-equal, and decodes on as the live cache
+    does."""
+    store = make_store(4, replicas=2)
+    try:
+        eng, _ = _q8_engine(monkeypatch, True, store)
+        eng.generate(_pt_requests([5, 9, 3], 6, seed=3))
+        live = eng._last_cache
+        eng.park_session("q8")
+        manifest = [n for n in store.list_objects("kv/q8/")
+                    if n.endswith("/p00000000")]
+        assert len(manifest) == 4       # k, v, k_scale, v_scale paged
+        back = eng.resume_session("q8", batch=3)
+        assert sorted(back) == sorted(live)
+        for key in live:
+            assert back[key].dtype == live[key].dtype, key
+            assert _raw(back[key]) == _raw(live[key]), key
+        tok = torch.tensor([[3], [4], [5]], dtype=torch.int32)
+        with torch.inference_mode():
+            a, _ = eng.model.decode_step(tok, {k: v.clone()
+                                               for k, v in live.items()})
+            b, _ = eng.model.decode_step(tok, back)
+        assert torch.equal(a, b)
+    finally:
+        store.close()
+
+
 def _strip_times(text: str) -> list[str]:
     return [re.sub(r"\d+ ms \([\d.]+ tok/s\)", "<t>", line)
             for line in text.strip().splitlines()]

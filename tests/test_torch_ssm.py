@@ -19,6 +19,7 @@ import functools
 import numpy as np
 import pytest
 import torch
+from _threads import few_torch_threads  # noqa: F401
 
 from repro_torch import pytree
 from repro_torch.configs import get_config

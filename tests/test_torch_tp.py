@@ -45,7 +45,7 @@ within ``LOGIT_TOL`` of the largest logit, greedy tokens exact, each
 rank's cache block at ``TRAIN_TOL``.  Without ranks: every smoke arch's
 parameter layout under ``megatron_sp``, ``tp_dp`` and ``tp_sp`` at (2,
 2) and (1, 4) against the reference's fitted specs (the recurrent
-families' ``tp`` entries refused)."""
+families' ``tp`` entries split too: ``tests/test_torch_tp_ssm.py``)."""
 
 import dataclasses
 import math
@@ -470,15 +470,17 @@ def _fake_rules(shape, names, strategy, coord=None):
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_tp_param_layout_equals_reference(tp_run, arch, mname, strategy):
     """Every parameter's layout (storage and ``tp`` dimensions, block
-    shape) follows the reference's fitted spec; the recurrent families'
-    ``tp`` entries on the model axis raise instead of replicating."""
+    shape) follows the reference's fitted spec, and every arch, the
+    recurrent families included, splits some leaf over the model axis
+    (their refusal of ``megatron_sp``'s sequence cut is the models':
+    ``tests/test_torch_tp_ssm.py``)."""
     ref, _ = tp_run
     shape, names = LAYOUT_MESHES[mname]
     rules = _fake_rules(shape, names, strategy)
     model = build_model(get_config(arch, smoke=True), device="meta")
     shapes, specs = model.abstract()
     flat_shapes = dict(pytree.flatten_with_keys(shapes))
-    refused = split = 0
+    split = 0
     for k, logical in _spec_leaves(specs):
         want = eval(str(ref[f"fit/{arch}/{mname}/{strategy}{k}"]))
         assert shd.fit_spec(rules, rules.spec(*logical),
@@ -486,13 +488,7 @@ def test_tp_param_layout_equals_reference(tp_run, arch, mname, strategy):
         whole = tuple(flat_shapes[k].shape)
         tp_dims = [d for d, (n, e) in enumerate(zip(logical, want))
                    if n == "tp" and e is not None]
-        if not model.TENSOR_PARALLEL and tp_dims:
-            with pytest.raises(NotImplementedError, match="tensor-parallel"):
-                shd.param_layout(rules, logical, whole, tp=False)
-            refused += 1
-            continue
-        layout = shd.param_layout(rules, logical, whole,
-                                  tp=model.TENSOR_PARALLEL)
+        layout = shd.param_layout(rules, logical, whole)
         assert layout.tp_dim == (tp_dims[0] if tp_dims else None), k
         sizes = dict(zip(names, shape))
         cut = tuple(s // math.prod(sizes[a] for a in (
@@ -500,10 +496,7 @@ def test_tp_param_layout_equals_reference(tp_run, arch, mname, strategy):
             for s, e in zip(whole, want))
         assert shd.block_shape(layout, rules.mesh) == tuple(cut), k
         split += layout.tp_dim is not None
-    if model.TENSOR_PARALLEL:
-        assert split and not refused
-    else:
-        assert refused and not split
+    assert split
 
 
 def test_tp_local_kv_pairs_each_head_with_its_own():

@@ -21,6 +21,7 @@ import functools
 import numpy as np
 import pytest
 import torch
+from _threads import few_torch_threads  # noqa: F401
 
 from repro_torch.configs import get_config
 from repro_torch.core import GlobalVOL, make_store
