@@ -43,7 +43,8 @@
    distinct copies) over the table's objects; the filter -> agg stays
    exact, scrub finds and heals exactly the injected copies and a second
    scrub finds none; transient failures on one OSD are retried.
-10. Maintenance: a second table of the same schema and size in 1 MiB
+10. Maintenance: a second table of the same schema and a quarter of the
+    rows (2^26, for the script's time) in 1 MiB
     objects in a fresh store, compacted (8 MiB policy), scrubbed,
     rebalanced and aged by the four daemons while a client thread loops
     the filter -> agg (each result held against numpy); then
@@ -59,7 +60,7 @@
 13. Serve: yi_9b at its published widths and depth (48 layers, d_model
     4096, 32 heads / 4 KV heads of 128, d_ff 11008, vocab 64000), bf16,
     random weights from ``--seed``, through ``ServeEngine.generate``: 8
-    requests of 256-1024 prompt tokens, 32 new tokens each, a 4096-slot
+    requests of 256-1024 prompt tokens, 16 new tokens each, a 4096-slot
     cache (3.22 GB) parked to a fresh store and resumed bit-equal; a
     2^26-row request log (``examples/serve_pushdown.py``'s columns) in
     another fresh store, one filter -> agg per request from 8 threads
@@ -68,24 +69,23 @@
     (prefill of 512 tokens and 512 teacher-forced decode steps against
     prefill of all 1024, batch 2) at full width in float32 with 24 of
     the 48 layers, held to rtol/atol 2e-2; the same check in bf16 at
-    full depth (448 + 64 against 512) is printed without a gate.
+    full depth (480 + 32 against 512) is printed without a gate.
 14. Train, full width: yi_9b at its published widths with 8 of its 48
     layers (1,908,477,952 parameters; bf16 params and grads and float32
     AdamW moments are 22.9 GB), ``remat="full"``, random weights from
     ``--seed``.  A 1024 x 4096-token corpus built from ``--seed`` into a
     fresh 8-OSD, 2-replica store in one ``build_corpus`` call; a packed,
     prefetching ``ObjectDataLoader`` feeding ``Trainer(packed_ingest=
-    True)`` (``fused_batch``: the ``bitunpack`` kernel) for 8 steps of
+    True)`` (``fused_batch``: the ``bitunpack`` kernel) for 5 steps of
     4 x 4096 tokens.  Every loss finite and the last below the first;
     one ``bitunpack`` launch a step; step walls, tokens/s, model FLOPs
     and their share of the bf16 dense peak, peak memory, and the card's
     busy share of one more step under ``torch.profiler``.
-15. Train restart: the same widths with 2 layers, 4 steps with a
-    checkpoint every 2 (keep 2) into the store; step 4's objects
-    deleted, the state restored from step 2 and steps 2 -> 4 run again
-    under ``torch.use_deterministic_algorithms``: every leaf of params,
-    m and v bit-equal to the uninterrupted run.  Save and restore walls
-    and GB/s.
+15. Train restart: the same widths with 1 layer, 3 steps with a
+    checkpoint at step 2 into the store; a fresh Trainer restores it and
+    runs step 3 again under ``torch.use_deterministic_algorithms``:
+    every leaf of params, m and v bit-equal to the uninterrupted run.
+    Save and restore walls and GB/s.
 16. Flash backward: the ``torch.autograd.Function`` against autograd
     through the checkpointed forward loop (``impl="scan"``) at one
     full-width layer's shapes (B 1, S 4096, H 32, K 4, hd 128, causal):
@@ -99,7 +99,7 @@
     engine, park/resume (a 1,019,215,872 B latent cache, ``ckv`` and
     ``krope``) and analytics as yi_9b; the decode step beside its
     memory bound (every expert's weights are read each step); the
-    shipped config's bf16 invariant (448 + 64 against 512, capacity
+    shipped config's bf16 invariant (480 + 32 against 512, capacity
     factor 1.25) printed without a gate.
 18. Mixture-of-experts invariant: the same widths in float32 with the
     dense layer and 5 of the 26 MoE layers (``MOE_F32_WHY``), at
@@ -122,7 +122,7 @@
     yi_9b phase's requests, engine, park / resume (rwkv's 170,393,604 B
     state whole; zamba's 3,599,400,964 B of SSD and conv state whole and
     k / v in pages) and analytics; the decode step beside its memory
-    bound; the bf16 invariant (192 + 64 against 256) without a gate.
+    bound; the bf16 invariant (224 + 32 against 256) without a gate.
 21. Recurrent invariants in float32, 512 + 512 against 1024, batch 2,
     held to rtol/atol 2e-2: rwkv6_3b whole, zamba2_2p7b at one group (6
     Mamba2 layers and the shared block), its whole depth printed without
@@ -150,22 +150,43 @@
 
 24. FSDP on one card: two gloo ranks on (data 2, model 1) under
     ``fsdp``, each holding half of every parameter and moment: yi_9b at
-    full width with 1 layer in float32 against the unsharded step, with
-    2 layers in bf16 timed, and deepseek_v2_lite_16b's dense and one MoE
-    layer's gradients against the single-card math.
+    full width with 1 layer in float32, 2 steps, each rank's losses and
+    blocks against the unsharded steps (params and moments at atol 1e-4
+    / rtol 1e-5); with
+    2 layers in bf16 through ``Trainer(rules=...)`` and packed ingest
+    (each rank unpacks its own words with ``bitunpack``), under
+    deterministic algorithms: 2 steps and a checkpoint (gathered leaf by
+    leaf, written once by rank 0), that checkpoint restored whole on the
+    card by the unsharded ``Trainer`` and held bit-equal to the gathered
+    state, step 3 timed, then fresh models and Trainers restored from
+    it (rank 0 reads, scatters each rank's blocks) and run to step 3,
+    every rank's blocks bit-equal to the uninterrupted run; save and
+    restore walls and bytes; and deepseek_v2_lite_16b's dense and one
+    MoE layer's gradients against the single-card math.
 25. The model axis on one card: two gloo ranks on (data 1, model 2),
     yi_9b's heads, d_ff and vocabulary split in two.  (a) yi_9b at full
     width with 1 layer in float32 under ``megatron_sp``, 2 steps of 2 x
     1024 tokens against the unsharded step of the same seed (params and
     moments at atol 1e-4 / rtol 1e-5), then ``tp_sp`` serving of 4
-    prompts of 1024 tokens and 16 greedy decode steps against the
+    prompts of 1024 tokens and 8 greedy decode steps against the
     single-card model (logits within 1e-4 of its largest, tokens
     equal); (b) 2 layers in bf16 under ``megatron_sp``, 2 x 4096 tokens
-    from packed ingest, 4 timed steps (wall, wire bytes by kind a rank
+    from packed ingest, 3 timed steps (wall, wire bytes by kind a rank
     a step, peak memory), and ``tp_sp`` serving in bf16 timed; (c)
     deepseek_v2_lite_16b's dense and one MoE layer in float32 under
     ``megatron_sp``: one step's gradients against the single-card
     gradients on the same tokens, within 1e-4 of each leaf's largest.
+
+26. The recurrent model axis on one card (``recurrent_tp_path``).
+27. The dry run (``repro_torch.launch.dryrun``), started before the
+    build as one subprocess a cell at nice 19, beside the phases above,
+    on fake ``cuda`` tensors and a fake process group of 256 or 512
+    ranks: yi_9b ``train_4k`` on (16, 16), the same with packed ingest
+    (``fused``: ``packed_input_spec`` and the ``bitunpack`` operator's
+    fake), deepseek_v2_lite_16b ``decode_32k``, and rwkv6_3b
+    ``train_4k`` on (2, 16, 16); each record's per-rank peak memory,
+    FLOPs, wire bytes and dominant roofline term (the H100's peaks).
+    It fails if a cell fails.
 
 Each path runs with the kernels' launch counts set to 0 just before it
 and read just after; every kernel of a path must have launched (the
@@ -218,21 +239,22 @@ KERNELS = ("bitunpack", "filter_agg", "block_agg")
 INGEST_VOCAB, INGEST_SEQ, INGEST_BATCH = 102_400, 4096, 256
 INGEST_SEQS, INGEST_STEPS = 4096, 8
 MAINT_OBJECT_BYTES = 1 << 20   # the maintenance path's small objects
+MAINT_ROWS_LOG2 = 26           # its table: a quarter of the main path's, for time
 # serve: yi_9b (src/repro/configs/yi_9b.py:14-29) with 8 requests of
 # 256-1024 prompt tokens; the longest is exactly 1024, because the
 # reference's flash attention needs a padded prompt longer than 512
 # tokens to be a multiple of 512 (attention.py:114)
 SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT = "yi_9b", 8, (256, 1024)
-SERVE_MAX_NEW, SERVE_MAX_SEQ = 32, 4096
+SERVE_MAX_NEW, SERVE_MAX_SEQ = 16, 4096
 SERVE_LOG_ROWS_LOG2 = 26       # the request log's rows
 SERVE_CLIENTS = 8
 # the invariant of tests/test_models.py:57-86 at full width: (prefill,
 # decode steps) per dtype; float32 is held to the reference's 2e-2, for
-# yi_9b at 12 of its 48 layers (all 48 took 57 s of the script's time,
-# 24 took 32.8 s and held 2.2e-5: its conditioning is flat, and the
-# script must stay well inside its 20 minutes on a slower host)
-INVARIANT_F32, INVARIANT_BF16, INVARIANT_TOL = (512, 512), (448, 64), 2e-2
-SERVE_F32_LAYERS = 12
+# yi_9b at 6 of its 48 layers (all 48 took 57 s of the script's time,
+# 24 took 32.8 s and held 2.2e-5, 12 14.9 s and 2.6e-5: its
+# conditioning is flat, and the script must stay inside 850 s)
+INVARIANT_F32, INVARIANT_BF16, INVARIANT_TOL = (512, 512), (480, 32), 2e-2
+SERVE_F32_LAYERS = 6
 # train: yi_9b at its published widths, 8 of its 48 layers (bf16 params
 # and grads with float32 AdamW moments are 22.9 GB; all 48 need ~106 GB
 # before activations; 24 took ~7.3 s a step, and the script's time goes
@@ -242,13 +264,13 @@ SERVE_F32_LAYERS = 12
 # 3e-4, end 8 steps above the first loss (11.82 -> 12.73 and 13.83 on an
 # H100), 1e-4 below it (9.47)
 TRAIN_ARCH, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = "yi_9b", 8, 4, 4096
-TRAIN_SEQS, TRAIN_STEPS, TRAIN_LR = 1024, 8, 1e-4
+TRAIN_SEQS, TRAIN_STEPS, TRAIN_LR = 1024, 5, 1e-4
 TRAIN_WHY = ("bf16 params and grads with float32 AdamW moments of all of "
              "them need ~106 GB before activations, more than one card's "
              "80 GB; 8 keep the script's time for the phases after it")
 # the restart: 1 layer (its 8.7 GB checkpoint at 2 layers took ~75 s of
-# saves and a restore), 4 steps with a checkpoint every 2 (keep 2)
-RESTART_LAYERS, RESTART_STEPS, RESTART_EVERY = 1, 4, 2
+# saves and a restore), 3 steps with one checkpoint, at step 2
+RESTART_LAYERS, RESTART_STEPS, RESTART_EVERY = 1, 3, 2
 # the flash backward at one full-width layer's shapes: B, S, H, K, hd
 FLASH_SHAPE, FLASH_TOL = (1, 4096, 32, 4, 128), 1e-4
 BF16_PEAK_FLOPS = 989e12       # H100 SXM data sheet, dense
@@ -273,8 +295,8 @@ MOE_TRAIN_WHY = ("bf16 params and grads with float32 AdamW moments of all "
 # and zamba2_2p7b (src/repro/configs/zamba2_2p7b.py:16-39), each served
 # whole in bf16 through yi_9b's requests (the longest prompt, 1024, is a
 # multiple of both chunks, 16 and 256) and trained at full width.  Their
-# bf16 invariant is 192 + 64 against 256: zamba's chunk of 256 admits no
-# 448-token prefill.  The float32 invariant is gated at 6 of rwkv6_3b's
+# bf16 invariant is 224 + 32 against 256: zamba's chunk of 256 admits no
+# 480-token prefill.  The float32 invariant is gated at 3 of rwkv6_3b's
 # 32 layers and at one group (6 Mamba2 layers and the shared block) for
 # zamba2_2p7b (SSM_F32_LAYERS, SSM_F32_WHY).  Both train at cut depth,
 # each step's chunk loops issued op by op from the host: rwkv6_3b at 1
@@ -306,30 +328,43 @@ MD_DEADLINE_S = 600
 # model 1), strategy fsdp, each rank's block of every parameter and
 # moment, gathered at use; each rank's block of the batch from packed
 # ingest.  (a) yi_9b at full width with 1 layer in float32, 2 x 1024
-# tokens, 2 steps, against an unsharded run of the same seed and global
-# batch; (b) yi_9b at full width with 2 layers in bf16, 2 x 4096 tokens a
-# rank, 4 steps, timed; (c) deepseek_v2_lite_16b's dense layer and one MoE
+# tokens, 2 steps, each rank's blocks and losses against an unsharded run
+# of the same seed and global batch on that rank; (b) yi_9b at full width with 2 layers in bf16, 2 x 4096 tokens a
+# rank, 3 steps through the sharded Trainer with a checkpoint at step 2,
+# timed, that checkpoint restored whole on the card by the unsharded
+# Trainer, and fresh Trainers restored from it and run to step 3 (every
+# rank's blocks bit-equal); (c) deepseek_v2_lite_16b's dense layer and one MoE
 # layer at full width in float32, capacity n_routed / top_k, one step's
 # gradients against the single-card math on each rank's tokens
 FS_RANKS, FS_F32_LAYERS, FS_F32_STEPS, FS_F32_SEQ = 2, 1, 2, 1024
-FS_CORPUS_SEQS = 64                  # the loader's first 4 batches need 16
-FS_BF16_LAYERS, FS_BF16_STEPS = 2, 4
+FS_CORPUS_SEQS = 64                  # the loader's first 3 batches need 12
+FS_BF16_LAYERS, FS_BF16_STEPS, FS_CKPT_STEP = 2, 3, 2
 FS_MOE_LAYERS, FS_MOE_SEQ = 2, 1024
 FS_TRAIN_TOL = {"rtol": 1e-5, "atol": 1e-4}    # tests/test_torch_fsdp.py
 FS_MOE_TOL = {"rtol": 1e-5, "atol": 1e-6}      # tests/test_torch_distributed.py
 FS_DEADLINE_S = 600
+# the dry run (phase 27): the port's launch.dryrun, one subprocess a
+# cell on fake "cuda" tensors, started before the build and run beside
+# the other phases at nice 19 (each is a CPU process with a fake process
+# group of 256 or 512 ranks; it puts nothing on the card).  Started after
+# the main path instead, it slowed the gloo phases by up to a third
+DRYRUN_CELLS = (("yi_9b", "train_4k", "single", "baseline"),
+                ("yi_9b", "train_4k", "single", "fused"),
+                ("deepseek_v2_lite_16b", "decode_32k", "single", "baseline"),
+                ("rwkv6_3b", "train_4k", "multi", "baseline"))
+DRYRUN_DEADLINE_S = 300        # past the end of the other phases
 # the model axis on one card (phase 25): 2 gloo ranks on cuda:0, mesh
 # (data 1, model 2), every rank the same sequences; (a) yi_9b at full
 # width with 1 layer in float32 under megatron_sp, 2 steps of 2 x 1024
 # tokens against the unsharded step, then tp_sp serving of 4 prompts of
-# 1024 tokens and 16 greedy decode steps against the single-card model;
-# (b) 2 layers in bf16, 2 x 4096 tokens, 4 timed steps, and tp_sp
+# 1024 tokens and 8 greedy decode steps against the single-card model;
+# (b) 2 layers in bf16, 2 x 4096 tokens, 3 timed steps, and tp_sp
 # serving in bf16 timed; (c) deepseek_v2_lite_16b's dense and one MoE
 # layer in float32 under megatron_sp, one step's gradients against the
 # single-card gradients on the same 1024 tokens
 TP_RANKS, TP_F32_LAYERS, TP_F32_STEPS, TP_F32_BATCH = 2, 1, 2, 2
-TP_F32_SEQ, TP_SERVE_BATCH, TP_SERVE_SEQ, TP_DECODE = 1024, 4, 1024, 16
-TP_BF16_LAYERS, TP_BF16_STEPS, TP_BF16_BATCH = 2, 4, 2
+TP_F32_SEQ, TP_SERVE_BATCH, TP_SERVE_SEQ, TP_DECODE = 1024, 4, 1024, 8
+TP_BF16_LAYERS, TP_BF16_STEPS, TP_BF16_BATCH = 2, 3, 2
 TP_MOE_LAYERS, TP_MOE_SEQ = 2, 1024
 TP_LOGIT_TOL = 1e-4        # of the single-card model's largest logit
 TP_GRAD_TOL = 1e-4         # of each gradient leaf's largest entry
@@ -340,13 +375,13 @@ TP_DEADLINE_S = 600
 # archs'); (a) rwkv6_3b at full width with 1 layer and zamba2_2p7b with
 # one group (6 Mamba2 layers and the shared block) in float32, 2 tp_dp
 # steps of 2 x 1024 tokens against the unsharded step, then tp_sp
-# serving of 4 prompts of 1024 tokens and 16 greedy decode steps against
+# serving of 4 prompts of 1024 tokens and 8 greedy decode steps against
 # the single-card model; (b) both whole in bf16, tp_sp prefill and
 # decode timed, and tp_dp train steps of 2 x 4096 tokens at (a)'s depths
 # timed; (c) yi_9b at full width with 2 layers in float32, its int8 KV
 # cache served under tp_sp against the single-card int8 decode
 # (phase 25's steps, batches, prompts and decode steps: TP_*)
-RT_RANKS, RT_BF16_STEPS, RT_BF16_BATCH, RT_BF16_DECODE = 2, 2, 2, 8
+RT_RANKS, RT_BF16_STEPS, RT_BF16_BATCH, RT_BF16_DECODE = 2, 1, 2, 4
 RT_LAYERS = {"rwkv6_3b": 1, "zamba2_2p7b": 6}
 RT_Q8_LAYERS = 2
 RT_VOCAB_ARCH = "zamba2_2p7b"
@@ -369,12 +404,13 @@ RT_DEADLINE_S = 600
 RT_GRAD_TOL = 2e-2
 RT_LOGIT_TOL = {"rwkv6_3b": TP_LOGIT_TOL, "zamba2_2p7b": 5e-4}
 RT_STATE_GATED = ("rwkv6_3b",)
-SSM_INVARIANT_BF16 = (192, 64)
-SSM_F32_LAYERS = {"rwkv6_3b": 6, "zamba2_2p7b": 6}
+SSM_INVARIANT_BF16 = (224, 32)
+SSM_F32_LAYERS = {"rwkv6_3b": 3, "zamba2_2p7b": 6}
 SSM_F32_WHY = {
     "rwkv6_3b": "whole it took 50.5 s of the script on an H100 and held "
-                "1.29e-4 of the 2e-2 gate (its conditioning is flat): 6 "
-                "make room for the recurrent model axis",
+                "1.29e-4 of the 2e-2 gate (its conditioning is flat; 6 "
+                "layers 1.80e-5 in 7.4 s): 3 make room for the sharded "
+                "Trainer and the dry run",
     "zamba2_2p7b": "at this init a relative perturbation of 1e-7 grows to "
                    "~3e-3 over one group's six Mamba2 layers, so the whole "
                    "model's prefill and decode differ by ~0.1 in the "
@@ -2178,10 +2214,9 @@ def _state_leaves(state) -> dict[str, torch.Tensor]:
 
 def restart_path(P, dev, seed: int, card: str) -> dict:
     """The same widths at ``RESTART_LAYERS`` layers: ``RESTART_STEPS``
-    steps with a checkpoint every ``RESTART_EVERY`` (keep 2); then the
-    last checkpoint's objects deleted, the state restored from the one
-    before it and those steps run again — every leaf of params, m and v
-    bit-equal to the uninterrupted run, under
+    steps with a checkpoint at ``RESTART_EVERY``; then a fresh Trainer
+    restores that checkpoint and runs the steps after it again — every
+    leaf of params, m and v bit-equal to the uninterrupted run, under
     ``torch.use_deterministic_algorithms``."""
     _free_card()
     cfg = dataclasses.replace(P.configs.get_config(TRAIN_ARCH),
@@ -2199,16 +2234,14 @@ def restart_path(P, dev, seed: int, card: str) -> dict:
         want_losses = [r["loss"] for r in tr.history]
         tr.loader.close()
         last = tr.ckpts.saved_steps[-1]
-        for name in store.list_objects(f"ckpt/train/step-{last}/"):
-            store.delete(name)
         again = _trainer(P, model, store, vol, seed, RESTART_STEPS,
-                         every=RESTART_EVERY)
+                         every=RESTART_STEPS + 1)
         _sync(dev)
         t = time.perf_counter()
         state, start = again.init_or_restore(seed)
         _sync(dev)
         restore_s = time.perf_counter() - t
-        if start != last - RESTART_EVERY:
+        if start != last:
             raise AssertionError(f"restart: restored step {start}")
         state = again.run(state, start_step=start)
         again.loader.close()
@@ -2845,10 +2878,10 @@ def _fs_batches(P, vol, rank: int, seed: int, steps: int,
 def _fs_f32(P, rules, words: list, seed: int) -> dict:
     """(a): yi_9b, ``FS_F32_LAYERS`` layer at full width in float32,
     ``FS_F32_STEPS`` steps on each rank's first sequence cut to
-    ``FS_F32_SEQ`` tokens, against the unsharded step on both ranks'
-    tokens (rank 0)."""
-    import torch.distributed as dist
-
+    ``FS_F32_SEQ`` tokens; then, on every rank, the unsharded steps from
+    the same seed on both ranks' tokens, and the rank's blocks of its
+    params, ``m`` and ``v`` held against the same blocks of the unsharded
+    state (cut on the card, no gather)."""
     from repro_torch.distributed import sharding as shd
     from repro_torch.train import steps
 
@@ -2872,75 +2905,196 @@ def _fs_f32(P, rules, words: list, seed: int) -> dict:
             tokens.append(shd.all_gather_dim(batch["tokens"], 0, group))
             state, m = step(state, batch)
             losses.append(float(m["loss"]))
-        got = {"params": _fs_whole(P, model, state["params"], rules),
-               "m": _fs_whole(P, model, state["opt"]["m"], rules),
-               "v": _fs_whole(P, model, state["opt"]["v"], rules)}
+    cuts = {n: rules.named(shd.fitted(rules, p.fsdp_spec, p.fsdp_shape))
+            for n, p in state["params"].items()}
+    got = {"params": {n: p.detach() for n, p in state["params"].items()},
+           "m": state["opt"]["m"], "v": state["opt"]["v"]}
     del model, state, step
     _free_card()
-    res = {"losses": losses, "tokens": list(tokens[0].shape)}
-    if dist.get_rank() == 0:
-        model = P.archs.build_model(cfg, remat="full", device=dev)
-        state = steps.init_train_state(
-            model, torch.Generator(device=dev).manual_seed(seed))
-        step = steps.make_train_step(model, opt)
-        want_losses = []
-        for t in tokens:
-            state, m = step(state, {"tokens": t,
-                                    "labels": P.ingest.derive_labels(t)})
-            want_losses.append(float(m["loss"]))
-        moved = 2 * TRAIN_LR * FS_F32_STEPS
-        res.update(
-            unsharded_losses=want_losses,
-            params=_fs_close(got["params"], {n: p.detach() for n, p in
-                                             state["params"].items()},
-                             FS_TRAIN_TOL, 1e-3, moved),
-            m=_fs_close(got["m"], state["opt"]["m"], FS_TRAIN_TOL),
-            v=_fs_close(got["v"], state["opt"]["v"], FS_TRAIN_TOL))
-        del model, state, step
-    del got
+    model = P.archs.build_model(cfg, remat="full", device=dev)
+    state = steps.init_train_state(
+        model, torch.Generator(device=dev).manual_seed(seed))
+    step = steps.make_train_step(model, opt)
+    want_losses = []
+    for t in tokens:
+        state, m = step(state, {"tokens": t,
+                                "labels": P.ingest.derive_labels(t)})
+        want_losses.append(float(m["loss"]))
+
+    def blocks(tree: dict) -> dict:
+        return {n: shd.local_shard(t.detach(), cuts[n])
+                for n, t in tree.items()}
+
+    moved = 2 * TRAIN_LR * FS_F32_STEPS
+    res = {"losses": losses, "tokens": list(tokens[0].shape),
+           "unsharded_losses": want_losses,
+           "params": _fs_close(got["params"], blocks(state["params"]),
+                               FS_TRAIN_TOL, 1e-3, moved),
+           "m": _fs_close(got["m"], blocks(state["opt"]["m"]),
+                          FS_TRAIN_TOL),
+           "v": _fs_close(got["v"], blocks(state["opt"]["v"]),
+                          FS_TRAIN_TOL)}
+    del model, state, step, got
     _free_card()
     return res
 
 
-def _fs_bf16(P, rules, words: list, seed: int) -> dict:
+def _fs_merge(parts: list) -> dict:
+    """The ranks' ``_fs_close`` results of their blocks as one."""
+    return {"max_abs_err": max(x["max_abs_err"] for x in parts),
+            "outside_tol": sum(x["outside_tol"] for x in parts),
+            "entries": sum(x["entries"] for x in parts),
+            "ok": all(x["ok"] for x in parts)}
+
+
+def _fs_trainer(P, model, store, vol, rules, seed: int, total: int,
+                every: int, step_fn):
+    """A sharded packed-ingest ``Trainer`` of this rank: a loader of its
+    rows of every ``TRAIN_BATCH`` batch, the phase's lr and schedule."""
+    import torch.distributed as dist
+
+    loader = P.pipeline.ObjectDataLoader(
+        vol, "corpus", global_batch=TRAIN_BATCH, dp_rank=dist.get_rank(),
+        dp_size=FS_RANKS, seed=seed, packed=True, prefetch=2)
+    opt = P.optimizer.OptConfig(lr=TRAIN_LR, warmup_steps=2,
+                                total_steps=FS_BF16_STEPS)
+    cfg = P.trainer.TrainerConfig(total_steps=total, ckpt_every=every,
+                                  ckpt_keep=2, log_every=FS_BF16_STEPS,
+                                  packed_ingest=True)
+    return P.trainer.Trainer(model, loader, store, opt=opt, cfg=cfg,
+                             step_fn=step_fn, rules=rules,
+                             log=lambda msg: None)
+
+
+def _fs_whole_check(P, cfg, store, vol, whole: dict, seed: int) -> dict:
+    """(b), the writer: the step-``FS_CKPT_STEP`` checkpoint restored
+    whole on the card by the unsharded ``Trainer``, every leaf held
+    bit-equal to ``whole`` (the sharded state gathered, on the host)."""
+    dev = torch.device(DEVICE)
+    model = P.archs.build_model(cfg, remat="full", device=dev)
+    loader = P.pipeline.ObjectDataLoader(vol, "corpus",
+                                         global_batch=TRAIN_BATCH,
+                                         seed=seed, packed=True)
+    single = P.trainer.Trainer(
+        model, loader, store, cfg=P.trainer.TrainerConfig(
+            total_steps=FS_CKPT_STEP, packed_ingest=True),
+        log=lambda msg: None)
+    _sync(dev)
+    t = time.perf_counter()
+    state, step = single.init_or_restore(seed)
+    _sync(dev)
+    restore_s = time.perf_counter() - t
+    loader.close()
+    want = {part: P.transformer._reference_leaves(model, tree) for part, tree
+            in (("params", whole["params"]), ("m", whole["opt"]["m"]),
+                ("v", whole["opt"]["v"]))}
+    differ, n = [], 0
+    for k, t in _state_leaves(state).items():
+        part, name = k.split("/", 1)
+        n += 1
+        if not _bits_equal(t, want[part][name].to(dev)):
+            differ.append(k)
+    if int(state["opt"]["step"]) != int(whole["opt"]["step"]):
+        differ.append("step")
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in _state_leaves(state).values())
+    del model, state, single, want
+    _free_card()
+    return {"step": step, "restore_s": restore_s, "bytes": nbytes,
+            "leaves": n, "differ": differ[:8], "n_differ": len(differ)}
+
+
+def _fs_bf16(P, rules, store, vol, seed: int) -> dict:
     """(b): yi_9b, ``FS_BF16_LAYERS`` layers at full width in bf16,
-    ``FS_BF16_STEPS`` timed steps of each rank's two 4096-token
-    sequences, with the collective bytes of each step."""
+    through the sharded ``Trainer`` with packed ingest, under
+    deterministic algorithms: ``FS_CKPT_STEP`` steps and a checkpoint,
+    the checkpoint restored whole on the card by the unsharded Trainer
+    (the writer) against the gathered state, the steps on to
+    ``FS_BF16_STEPS``; then fresh models and Trainers restored from the
+    checkpoint and run to ``FS_BF16_STEPS``, every rank's blocks
+    bit-equal to the uninterrupted run's.  Steps timed, with the
+    collective bytes of each."""
+    import torch.distributed as dist
+
     from repro_torch.distributed import sharding as shd
     from repro_torch.train import steps
 
     dev = torch.device(DEVICE)
+    writer = dist.get_rank() == 0
     cfg = dataclasses.replace(P.configs.get_config(TRAIN_ARCH),
                               n_layers=FS_BF16_LAYERS)
     opt = P.optimizer.OptConfig(lr=TRAIN_LR, warmup_steps=2,
                                 total_steps=FS_BF16_STEPS)
-    model = P.archs.build_model(cfg, remat="full", device=dev)
-    n_params = sum(p.numel() for p in model.parameters())
-    state = steps.init_train_state(
-        model, torch.Generator(device=dev).manual_seed(seed))
-    state = steps.shard_train_state(model, state, rules)
-    local = sum(p.numel() for p in model.parameters())
-    step = steps.make_train_step(model, opt)
-    _free_card()
-    torch.distributed.barrier()          # rank 0 ran (a)'s unsharded step
-    walls, losses, moved = [], [], []
-    _zero_counts(P)                      # the path's run starts here
-    with shd.use_rules(rules):
-        for w in words[:FS_BF16_STEPS]:
-            _sync(dev)
+    moved: list[dict] = []
+
+    def recorded(model):
+        step = steps.make_train_step(model, opt)
+
+        def step_fn(state, batch):
             shd.reset_collective_bytes()
-            t = time.perf_counter()
-            state, m = step(state, P.ingest.fused_batch(w))
-            losses.append(float(m["loss"]))          # syncs
-            walls.append(time.perf_counter() - t)
+            out = step(state, batch)
             moved.append(dict(shd.COLLECTIVE_BYTES))
-    launches = _counts(P)                # ... and ends here
-    peak = torch.cuda.max_memory_allocated(dev)
-    del model, state, step
+            return out
+        return step_fn
+
     _free_card()
-    return {"params": n_params, "local_params": local, "step_s": walls,
-            "losses": losses, "bytes": moved, "peak_mem_GB": peak / 1e9,
-            "launches": launches}
+    dist.barrier()                       # rank 0 ran (a)'s unsharded step
+    torch.use_deterministic_algorithms(True)
+    try:
+        _zero_counts(P)                  # the path's run starts here
+        model = P.archs.build_model(cfg, remat="full", device=dev)
+        n_params = sum(p.numel() for p in model.parameters())
+        step_fn = recorded(model)
+        first = _fs_trainer(P, model, store, vol, rules, seed, FS_CKPT_STEP,
+                            FS_CKPT_STEP, step_fn)
+        state, _ = first.init_or_restore(seed)
+        local = sum(p.numel() for p in model.parameters())
+        state = first.run(state, start_step=0)     # waits for the save
+        whole = P.transformer.sharded_state_to_reference(state, rules,
+                                                         writer)
+        check = _fs_whole_check(P, cfg, store, vol, whole, seed) \
+            if writer else None
+        del whole
+        dist.barrier()
+        rest = _fs_trainer(P, model, store, vol, rules, seed, FS_BF16_STEPS,
+                           FS_BF16_STEPS + 1, step_fn)
+        state = rest.run(state, start_step=FS_CKPT_STEP)
+        peak = torch.cuda.max_memory_allocated(dev)
+        want = {k: t.clone() for k, t in _state_leaves(state).items()}
+        history = first.history + rest.history
+        saves = first.ckpts.timings
+        first.loader.close()
+        rest.loader.close()
+        del model, state, first, rest, step_fn
+        _free_card()
+        model = P.archs.build_model(cfg, remat="full", device=dev)
+        again = _fs_trainer(P, model, store, vol, rules, seed, FS_BF16_STEPS,
+                            FS_BF16_STEPS + 1, recorded(model))
+        _sync(dev)
+        t = time.perf_counter()
+        state, start = again.init_or_restore(seed)
+        _sync(dev)
+        restore_s = time.perf_counter() - t
+        state = again.run(state, start_step=start)
+        again.loader.close()
+        launches = _counts(P)            # ... and ends here
+        got = _state_leaves(state)
+        differ = [k for k in want if not _bits_equal(got[k], want[k])]
+        n_leaves = len(want) if sorted(got) == sorted(want) else -1
+        relosses = [r["loss"] for r in again.history]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    del model, state, again, got, want
+    _free_card()
+    return {"params": n_params, "local_params": local,
+            "step_s": [r["wall_s"] for r in history],
+            "losses": [r["loss"] for r in history],
+            "bytes": moved[:FS_BF16_STEPS], "peak_mem_GB": peak / 1e9,
+            "saves": saves, "restored_step": start,
+            "restore_s": restore_s, "restart_losses": relosses,
+            "leaves": n_leaves,
+            "differ": differ[:8], "n_differ": len(differ),
+            "whole_check": check, "launches": launches}
 
 
 def _fs_moe(P, rules, words: list, seed: int) -> dict:
@@ -3022,18 +3176,18 @@ def _fs_rank(rank: int, world: int, init: str, tmp: str, seed: int) -> None:
                 n_seqs=FS_CORPUS_SEQS, seq_len=TRAIN_SEQ,
                 vocab_size=P.configs.get_config(TRAIN_ARCH).vocab_size,
                 seed=seed), chunk_rows=FS_CORPUS_SEQS)
-            words = _fs_batches(P, vol, rank, seed, FS_BF16_STEPS)
+            words = _fs_batches(P, vol, rank, seed, FS_F32_STEPS)
+            walls = {}
+            t = time.perf_counter()
+            _zero_counts(P)
+            res = {"f32": _fs_f32(P, rules, words, seed)}
+            res["f32"]["launches"] = _counts(P)
+            walls["a_s"] = time.perf_counter() - t
+            t = time.perf_counter()
+            res["bf16"] = _fs_bf16(P, rules, store, vol, seed)
+            walls["b_s"] = time.perf_counter() - t
         finally:
             store.close()
-        walls = {}
-        t = time.perf_counter()
-        _zero_counts(P)
-        res = {"f32": _fs_f32(P, rules, words, seed)}
-        res["f32"]["launches"] = _counts(P)
-        walls["a_s"] = time.perf_counter() - t
-        t = time.perf_counter()
-        res["bf16"] = _fs_bf16(P, rules, words, seed)
-        walls["b_s"] = time.perf_counter() - t
         t = time.perf_counter()
         _zero_counts(P)
         res["moe"] = _fs_moe(P, rules, words, seed)
@@ -3071,12 +3225,14 @@ def _spawned(fn, ranks: int, seed: int, deadline_s: float, what: str
 def fsdp_path(P, dev, seed: int, card: str) -> dict:
     """Phase 24: ``FS_RANKS`` gloo ranks on this one card run the train
     step with its state sharded ZeRO-3 style (``train.steps.
-    shard_train_state`` under ``MeshRules(strategy="fsdp")``)."""
+    shard_train_state`` under ``MeshRules(strategy="fsdp")``), (b)
+    through the sharded ``Trainer`` and its checkpoints."""
     _free_card()
     t0 = time.perf_counter()
     ranks = _spawned(_fs_rank, FS_RANKS, seed, FS_DEADLINE_S, "fsdp")
     wall = time.perf_counter() - t0
-    a = ranks[0]["f32"]
+    a = dict(ranks[0]["f32"], **{k: _fs_merge([r["f32"][k] for r in ranks])
+                                 for k in ("params", "m", "v")})
     b = [r["bf16"] for r in ranks]
     c = ranks[0]["moe"]
     per_step = [{k: v for k, v in x.items() if v} for x in b[0]["bytes"]]
@@ -3087,8 +3243,9 @@ def fsdp_path(P, dev, seed: int, card: str) -> dict:
     print(f"fsdp (a): {TRAIN_ARCH} {FS_F32_LAYERS} layer in float32 under "
           f"fsdp on (data {FS_RANKS}, model 1), {FS_F32_STEPS} steps of "
           f"{a['tokens']} tokens: losses {a['losses']} against unsharded "
-          f"{a['unsharded_losses']}; gathered params {a['params']}, m "
-          f"{a['m']}, v {a['v']}  [{card}]", flush=True)
+          f"{a['unsharded_losses']}; each rank's blocks against the "
+          f"unsharded state's: params {a['params']}, m {a['m']}, v "
+          f"{a['v']}  [{card}]", flush=True)
     print(f"fsdp (b): {TRAIN_ARCH} {FS_BF16_LAYERS} layers "
           f"({b[0]['params']} params, {b[0]['local_params']} a rank) in "
           f"bf16, {FS_BF16_STEPS} packed-ingest steps of {FS_RANKS} x "
@@ -3101,6 +3258,22 @@ def fsdp_path(P, dev, seed: int, card: str) -> dict:
           f"{[round(x['peak_mem_GB'], 3) for x in b]} GB; bitunpack "
           f"launches {[x['launches']['bitunpack'] for x in b]}  [{card}]",
           flush=True)
+    save, whole = b[0]["saves"][0], b[0]["whole_check"]
+    save_rate = save["bytes"] / (save["snapshot_s"] + save["write_s"]) / 1e9
+    whole_rate = whole["bytes"] / whole["restore_s"] / 1e9
+    print(f"fsdp (b) checkpoint: sharded Trainer, step {FS_CKPT_STEP} saved "
+          f"once by rank 0 ({save['bytes']} B: gather + host snapshot "
+          f"{save['snapshot_s']:.3f} s, write {save['write_s']:.3f} s, "
+          f"{save_rate:.3f} GB/s); restored whole on the card by the "
+          f"unsharded Trainer in {whole['restore_s']:.3f} s "
+          f"({whole_rate:.3f} GB/s), {whole['leaves'] - whole['n_differ']} of "
+          f"{whole['leaves']} leaves bit-equal to the gathered state; fresh "
+          f"Trainers restored step {b[0]['restored_step']} in "
+          f"{[round(x['restore_s'], 3) for x in b]} s (rank 0 reads, "
+          f"scatters each rank's blocks) and ran to {FS_BF16_STEPS}: "
+          f"{[x['leaves'] - x['n_differ'] for x in b]} of "
+          f"{[x['leaves'] for x in b]} blocks bit-equal to the "
+          f"uninterrupted run  [{card}]", flush=True)
     print(f"fsdp (c): {MOE_ARCH} dense + MoE layer in float32 at capacity "
           f"n_routed / top_k, {c['tokens']} tokens, one step's gathered "
           f"gradients against the single-card math on each rank's tokens: "
@@ -3116,9 +3289,26 @@ def fsdp_path(P, dev, seed: int, card: str) -> dict:
                     ("moe grads", c["grads"])):
         if not r["ok"]:
             raise AssertionError(f"fsdp: {name} {r}")
-    if launches != {"bitunpack": FS_RANKS * FS_BF16_STEPS, "filter_agg": 0,
+    for x in (r["f32"] for r in ranks):
+        if len(x["losses"]) != FS_F32_STEPS or not np.allclose(
+                x["losses"], x["unsharded_losses"], **FS_TRAIN_TOL):
+            raise AssertionError(f"fsdp (a): losses {x['losses']} against "
+                                 f"unsharded {x['unsharded_losses']}")
+    ran = 2 * FS_BF16_STEPS - FS_CKPT_STEP     # the restart's steps again
+    if launches != {"bitunpack": FS_RANKS * ran, "filter_agg": 0,
                     "block_agg": 0}:
         raise AssertionError(f"fsdp launches {launches}")
+    if whole["n_differ"] or whole["step"] != FS_CKPT_STEP or len(
+            b[0]["saves"]) != 1 or any(x["saves"] for x in b[1:]):
+        raise AssertionError(f"fsdp: checkpoint {whole}, saves "
+                             f"{[x['saves'] for x in b]}")
+    for x in b:
+        if x["n_differ"] or x["leaves"] <= 0 or \
+                x["restored_step"] != FS_CKPT_STEP or \
+                x["restart_losses"] != x["losses"][FS_CKPT_STEP:]:
+            raise AssertionError(f"fsdp: restart {x['differ']} "
+                                 f"({x['n_differ']} blocks differ), losses "
+                                 f"{x['restart_losses']} vs {x['losses']}")
     for x in b:
         if not all(np.isfinite(x["losses"])) or \
                 not x["losses"][-1] < x["losses"][0]:
@@ -3861,6 +4051,83 @@ def recurrent_tp_path(P, dev, seed: int, card: str) -> dict:
 # --------------------------------------------------------------------------
 
 
+# --------------------------------------------------------------------------
+# the dry run (phase 27)
+# --------------------------------------------------------------------------
+
+
+def start_dryrun(out: Path) -> list:
+    """Phase 27's cells, one ``python -m repro_torch.launch.dryrun``
+    subprocess each at nice 19, writing their records into ``out``."""
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    code = ("import os; os.nice(19); "
+            "from repro_torch.launch.dryrun import main; main()")
+    procs = []
+    for arch, shape, mesh, variant in DRYRUN_CELLS:
+        log = open(out / f"{arch}.{shape}.{mesh}.{variant}.log", "w")
+        procs.append(((arch, shape, mesh, variant), log, subprocess.Popen(
+            [sys.executable, "-c", code, "--arch", arch, "--shape", shape,
+             "--mesh", mesh, "--variant", variant, "--force", "--out",
+             str(out)], env=env, cwd=root, stdout=log,
+            stderr=subprocess.STDOUT)))
+    return procs
+
+
+def stop_dryrun(procs: list) -> None:
+    for _, log, proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
+def dryrun_path(procs: list, out: Path, started: float, card: str) -> dict:
+    """Phase 27: wait for the dry run's cells (at most
+    ``DRYRUN_DEADLINE_S`` more), print each record's per-rank peak
+    memory, FLOPs, wire bytes and dominant roofline term, and fail if a
+    cell failed."""
+    deadline = time.monotonic() + DRYRUN_DEADLINE_S
+    recs, failed = {}, []
+    for (arch, shape, mesh, variant), log, proc in procs:
+        try:
+            rc = proc.wait(timeout=max(deadline - time.monotonic(), 1))
+        except subprocess.TimeoutExpired:
+            rc = None
+        mname = "pod2x16x16" if mesh == "multi" else "pod16x16"
+        key = f"{arch}.{shape}.{mname}.{variant}.full"
+        path = out / f"{key}.json"
+        rec = json.loads(path.read_text()) if path.exists() else {}
+        recs[key] = rec
+        if rc != 0 or not rec.get("ok"):
+            log.flush()
+            tail = (out / f"{arch}.{shape}.{mesh}.{variant}.log").read_text()
+            failed.append((key, rc, rec.get("error"), tail[-2000:]))
+            continue
+        m, r, c = rec["memory"], rec["roofline"], rec["collective"]
+        print(f"dry run {key}: {rec['strategy']} on {rec['n_devices']} fake "
+              f"ranks, one rank's step on fake {rec['device']} tensors "
+              f"(counted at {rec['scaled']['at']} of {rec['scaled']['units']}"
+              f" blocks, {rec['micro']} micro-batches): per-rank peak "
+              f"{m['peak_hbm_bytes'] / 1e9:.3f} GB (arguments "
+              f"{m['argument_bytes'] / 1e9:.3f} GB), FLOPs a rank "
+              f"{rec['hlo_flops_per_dev']:.4e}, bytes a rank "
+              f"{rec['hlo_bytes_per_dev']:.4e}, wire bytes a rank "
+              f"{c['total']:.4e} ({ {k: v for k, v in c.items() if v and k != 'total'} }); "
+              f"roofline compute {r['compute_s']:.4f} s, memory "
+              f"{r['memory_s']:.4f} s, collective {r['collective_s']:.4f} s: "
+              f"dominant {r['dominant']}; model FLOPs {rec['model_flops_total']:.4e}"
+              f" ({rec['useful_flops_ratio']:.3f} of the counted); "
+              f"not ported: {rec['switches_not_ported']}; cell "
+              f"{rec['wall_s']:.1f} s  [{card}]", flush=True)
+    stop_dryrun(procs)
+    print(f"dry run: {len(procs)} cells done {time.perf_counter() - started:.1f}"
+          f" s after they started", flush=True)
+    if failed:
+        raise AssertionError(f"dry run: {len(failed)} cells failed: {failed}")
+    return recs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows-log2", type=int, default=FULL_ROWS_LOG2,
@@ -3876,13 +4143,27 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     P = _load_port()
-    fmt, bu = P.fmt, P.bu
     dev = torch.device(DEVICE)
     card = card_line()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
     print(f"card: {card}", flush=True)
-    start = last = time.perf_counter()
+    start = time.perf_counter()
+    dry_dir = Path(tempfile.mkdtemp(prefix="dryrun_torch_"))
+    dry = start_dryrun(dry_dir)
+    try:
+        return _phases(args, P, card, dev, start, dry, dry_dir)
+    finally:
+        stop_dryrun(dry)
+        shutil.rmtree(dry_dir, ignore_errors=True)
+
+
+def _phases(args, P, card: str, dev, start: float, dry: list,
+            dry_dir: Path) -> int:
+    """The phases in order, phase 27's subprocesses (``dry``, started by
+    ``main``, which stops any left) running beside them."""
+    fmt, bu = P.fmt, P.bu
+    last = start
 
     def lap(what: str) -> None:
         nonlocal last
@@ -4007,8 +4288,12 @@ def main(argv=None) -> int:
     del store, table
     gc.collect()
     lap("main path, pushdown, ingest, table planes")
+    maint_rows = min(ds_rows, 1 << MAINT_ROWS_LOG2)
+    if maint_rows < ds_rows:
+        print(f"reduced: maintenance table at 2^{MAINT_ROWS_LOG2} rows of "
+              f"the main path's 2^{args.rows_log2} (the script's time limit)")
     planes.update(fresh_planes(P, dev, args.seed, card,
-                               maint_rows=ds_rows))
+                               maint_rows=maint_rows))
     gc.collect()
     torch.cuda.empty_cache()
     lap("maintenance, checkpoint, KV pages")
@@ -4031,6 +4316,8 @@ def main(argv=None) -> int:
     planes["recurrent model axis"] = recurrent_tp_path(P, dev, args.seed,
                                                        card)
     lap("recurrent model axis on one card")
+    dryrun_path(dry, dry_dir, start, card)
+    lap("dry run (the rest of its time ran beside the phases above)")
 
     scans = {"scan": res["launches"],
              "packed ingest": ing["launches"]["bitunpack"],

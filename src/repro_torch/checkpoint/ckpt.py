@@ -19,6 +19,12 @@ up to replicas-1 per object; ``ObjectStore.recover`` heals the rest.
 ``CheckpointManager`` adds async double-buffered saves (serialization +
 store writes overlap the next train steps) and retention.
 
+A sharded state (``train.steps.shard_train_state`` on a process group)
+is saved once, whole, in the same layout: every rank takes part in
+gathering each leaf, on its own thread, and one writer (rank 0) writes;
+``latest_step(shared=True)`` lets the writer decide the step a restore
+takes (``train.trainer`` drives both).
+
 Leaves are tensors, on any device: they are keyed and serialized by
 ``repro_torch.pytree`` (the same key strings, dtype names and raw bytes
 as every other checkpoint in the store, bf16 included), and ``restore``
@@ -141,7 +147,25 @@ def reconcile_partial_save(store: ObjectStore,
     return deleted
 
 
-def latest_step(store: ObjectStore, *, tag: str = "train") -> int | None:
+def is_writer() -> bool:
+    """Whether this process writes a sharded state's checkpoint: rank 0
+    of the default process group (the mesh's rank 0), or the only
+    process."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def latest_step(store: ObjectStore, *, tag: str = "train",
+                shared: bool = False) -> int | None:
+    """The newest committed step of ``tag``, or None.  ``shared``: every
+    rank of the default process group calls it together, the writer
+    (:func:`is_writer`) reads its store and broadcasts its answer (each
+    rank's in-process store is its own replica; the writer's decides)."""
+    if shared:
+        import torch.distributed as dist
+        box = [latest_step(store, tag=tag) if is_writer() else None]
+        dist.broadcast_object_list(box, src=0)
+        return box[0]
     steps = []
     for name in store.list_objects(f"ckpt/{tag}/step-"):
         if name.endswith("/.manifest"):
@@ -198,29 +222,48 @@ class CheckpointManager:
     synchronous copy of every leaf, complete before it returns, so a
     train step may mutate the tensors at once) then writes to the store
     on a background thread so training overlaps the object writes.
+    ``shared``: a sharded state's saves, taken once (``maybe_save``).
     ``timings`` records each save: its step, bytes, the snapshot's wall
     and the background write's."""
 
     def __init__(self, store: ObjectStore, *, tag: str = "train",
                  every_steps: int = 100, keep: int = 3,
-                 policy: PartitionPolicy = _DEFAULT_POLICY):
+                 policy: PartitionPolicy = _DEFAULT_POLICY,
+                 shared: bool = False):
         self.store = store
         self.tag = tag
         self.every_steps = every_steps
         self.keep = keep
         self.policy = policy
+        self.shared = shared
         self._pending: threading.Thread | None = None
         self.saved_steps: list[int] = []
         self.timings: list[dict] = []
 
     def maybe_save(self, state: Any, step: int,
                    extra: dict | None = None) -> bool:
+        """Save at ``step`` if it is due.  ``state`` is the tree, or a
+        callable ``snapshot(writer)`` returning it as fresh host tensors,
+        called only when due.  A ``shared`` manager's ``maybe_save`` is
+        called by every rank of the default process group together:
+        ``snapshot`` runs on each on the caller's thread, in the same
+        order (its collectives), returning the tree on the writer
+        (:func:`is_writer`) and None elsewhere; only the writer
+        serializes and writes, and only its store receives the
+        checkpoint.  Otherwise this process is the writer."""
         if step % self.every_steps:
             return False
-        self.wait()
+        writer = not self.shared or is_writer()
+        if writer:
+            self.wait()
         t = time.perf_counter()
-        host_state = pytree.map_with_keys(        # device->host snap
-            lambda _key, leaf: pytree.host_copy(leaf), state)
+        if callable(state):
+            host_state = state(writer)
+        else:                                     # device->host snap
+            host_state = pytree.map_with_keys(
+                lambda _key, leaf: pytree.host_copy(leaf), state)
+        if not writer:
+            return True
         rec = {"step": step, "snapshot_s": time.perf_counter() - t,
                "bytes": sum(leaf.nbytes for _, leaf in
                             pytree.flatten_with_keys(host_state))}

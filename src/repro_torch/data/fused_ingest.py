@@ -18,7 +18,7 @@ from collections import deque
 import numpy as np
 import torch
 
-from repro_torch.core.format import bitpack_encode
+from repro_torch.core.format import bitpack_encode, bitpack_width
 from repro_torch.core.pushdown_torch import unpack_bitpacked
 from repro_torch.kernels import ops
 
@@ -120,3 +120,12 @@ def make_fused_train_step(base_train_step):
         return base_train_step(state, fused_batch(packed))
 
     return fused_step
+
+
+def packed_input_spec(global_batch: int, seq_len: int, vocab: int
+                      ) -> torch.Tensor:
+    """The packed batch as a meta tensor (the dry run's input stand-in):
+    (B, S // 32, bits) int32, the reference's uint32 words."""
+    bits = bitpack_width(vocab - 1)
+    return torch.empty((global_batch, seq_len // 32, bits),
+                       dtype=torch.int32, device="meta")

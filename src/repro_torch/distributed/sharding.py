@@ -283,12 +283,14 @@ def axes_size(mesh: "DeviceMesh", axes) -> int:
                      (axes if isinstance(axes, tuple) else (axes,)))
 
 
-def local_shard(x: "torch.Tensor", sharding: Sharding) -> "torch.Tensor":
-    """This rank's block of the whole tensor ``x`` under ``sharding``:
-    what ``distribute_tensor(x, *sharding).to_local()`` holds, cut
-    without a collective.  A dimension that its axes' sizes do not
-    divide raises ``ValueError``, where ``NamedSharding`` refuses it
-    (DTensor would pad)."""
+def local_shard(x: "torch.Tensor", sharding: Sharding, coord=None
+                ) -> "torch.Tensor":
+    """This rank's block of the whole tensor ``x`` under ``sharding``
+    (or the block at mesh coordinate ``coord``): what
+    ``distribute_tensor(x, *sharding).to_local()`` holds, cut without a
+    collective.  A dimension that its axes' sizes do not divide raises
+    ``ValueError``, where ``NamedSharding`` refuses it (DTensor would
+    pad)."""
     from torch.distributed.tensor import Shard
 
     mesh, place = sharding
@@ -299,11 +301,11 @@ def local_shard(x: "torch.Tensor", sharding: Sharding) -> "torch.Tensor":
         if x.shape[d] % n:
             raise ValueError(f"dimension {d} of a {tuple(x.shape)} tensor "
                              f"does not divide into {n} shards")
-    coord = mesh.get_coordinate()
+    coord = mesh.get_coordinate() if coord is None else coord
     for i, p in enumerate(place):
         if isinstance(p, Shard):
             step = x.shape[p.dim] // sizes[i]
-            x = x.narrow(p.dim, coord[i] * step, step)
+            x = x.narrow(p.dim, int(coord[i]) * step, step)
     return x.contiguous()
 
 
@@ -321,6 +323,7 @@ def axes_group(mesh: "DeviceMesh", axes):
         return mesh.get_group(axes[0])
     key = (id(mesh), axes)
     if key not in _GROUPS:
+        import numpy as np
         import torch.distributed as dist
 
         names = tuple(mesh.mesh_dim_names)
@@ -328,10 +331,17 @@ def axes_group(mesh: "DeviceMesh", axes):
         if dims != sorted(dims):
             raise ValueError(f"axes {axes} are not in the mesh's order "
                              f"{names}")
-        rest = [i for i in range(len(names)) if i not in dims]
-        rows = mesh.mesh.permute(*rest, *dims).reshape(
-            -1, axes_size(mesh, axes)).tolist()
         me = dist.get_rank()
+        # the rows from the mesh's shape, with numpy: ``mesh.mesh`` is
+        # built by tensor ops, which a fake tensor mode would intercept
+        shape = tuple(mesh_sizes(mesh).values())
+        if tuple(mesh.get_coordinate()) != np.unravel_index(me, shape):
+            raise ValueError(f"rank {me} sits at {mesh.get_coordinate()} of "
+                             f"a {shape} mesh: not its ranks 0..n-1 in "
+                             "row-major order")
+        rest = [i for i in range(len(names)) if i not in dims]
+        rows = np.arange(math.prod(shape)).reshape(shape).transpose(
+            *rest, *dims).reshape(-1, axes_size(mesh, axes)).tolist()
         for ranks in rows:
             if ranks != sorted(ranks):
                 raise ValueError(f"mesh ranks {ranks} along {axes} are not "
@@ -340,6 +350,12 @@ def axes_group(mesh: "DeviceMesh", axes):
             if me in ranks:
                 _GROUPS[key] = (mesh, group)
     return _GROUPS[key][1]
+
+
+def clear_groups() -> None:
+    """Forget the groups :func:`axes_group` made (their process group
+    was destroyed: the dry run makes a new one for each cell)."""
+    _GROUPS.clear()
 
 
 def spec_tree_to_shardings(rules: MeshRules, spec_tree):
@@ -466,10 +482,33 @@ def reshard(x: torch.Tensor, logical: tuple, shape, src: MeshRules,
 # collectives, with their wire bytes counted
 # --------------------------------------------------------------------------
 
-# wire bytes a rank moved, by collective, as the reference's HLO counter
-# counts them: all-gather (n-1)/n of its output, reduce-scatter (n-1)/n
-# of its input, all-reduce 2 (n-1)/n of its tensor
+# wire bytes a rank moved, by collective (the kinds of ``wire_bytes``)
 COLLECTIVE_BYTES = {"all_gather": 0, "reduce_scatter": 0, "all_reduce": 0}
+
+
+def wire_bytes(kind: str, result_bytes: int, n: int) -> int:
+    """The bytes one rank of a group of ``n`` puts on the wire for a
+    collective whose result on that rank is ``result_bytes``, by the
+    reference's ring factors (``repro/launch/dryrun.py::
+    collective_bytes``): all-gather (n-1)/n of its result, reduce-
+    scatter (n-1) times its result (the shard: (n-1)/n of its input),
+    all-reduce 2 (n-1)/n of its result, all-to-all (n-1)/n of it, a
+    permute (a broadcast) its result.  ``kind`` is spelled with either
+    ``_`` or ``-``; whole bytes, rounded down.  The one definition:
+    :data:`COLLECTIVE_BYTES` and ``launch.op_analysis`` both count by
+    it."""
+    kind = kind.replace("_", "-")
+    if n <= 1:
+        return 0
+    if kind in ("all-gather", "all-to-all"):
+        return result_bytes * (n - 1) // n
+    if kind == "reduce-scatter":
+        return result_bytes * (n - 1)
+    if kind == "all-reduce":
+        return 2 * result_bytes * (n - 1) // n
+    if kind in ("collective-permute", "broadcast"):
+        return result_bytes
+    raise ValueError(f"unknown collective {kind!r}")
 
 
 def reset_collective_bytes() -> None:
@@ -477,8 +516,8 @@ def reset_collective_bytes() -> None:
         COLLECTIVE_BYTES[k] = 0
 
 
-def _count(kind: str, nbytes: int, n: int, factor: int = 1) -> None:
-    COLLECTIVE_BYTES[kind] += factor * nbytes * (n - 1) // n
+def _count(kind: str, result_bytes: int, n: int) -> None:
+    COLLECTIVE_BYTES[kind] += wire_bytes(kind, result_bytes, n)
 
 
 def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
@@ -502,7 +541,7 @@ def reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     chunks = [c.contiguous() for c in x.chunk(n, dim=dim)]
     out = torch.empty_like(chunks[0])
     dist.reduce_scatter(out, chunks, group=group)
-    _count("reduce_scatter", x.numel() * x.element_size(), n)
+    _count("reduce_scatter", out.numel() * out.element_size(), n)
     return out
 
 
@@ -518,7 +557,7 @@ def all_reduce_(x: torch.Tensor, group, op=None) -> torch.Tensor:
 
     n = dist.get_world_size(group)
     dist.all_reduce(x, op=op or dist.ReduceOp.SUM, group=group)
-    _count("all_reduce", x.numel() * x.element_size(), n, 2)
+    _count("all_reduce", x.numel() * x.element_size(), n)
     return x
 
 

@@ -34,7 +34,10 @@ tensor form both go through.
 
 A CUDA tensor goes through the kernel, or the call raises.  A CPU tensor
 goes through :func:`bitunpack_plain`, the same function in plain
-PyTorch.  ``launches`` counts kernel launches.
+PyTorch.  Both are the ``torch.library`` operator
+``repro_torch::bitunpack``, whose fake implementation gives a fake
+tensor mode the result's shape (the dry run, ``launch.dryrun``).
+``launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -155,15 +158,35 @@ def _launch(words: torch.Tensor, bits: int, n: int) -> torch.Tensor:
     return out
 
 
+# One operator, ``repro_torch::bitunpack(words, bits, n)``, so that a
+# fake tensor mode (the dry run's) traces it: CUDA launches the kernel,
+# the CPU runs the plain version, a fake or meta tensor gets its (n,)
+# int32 result; any other device has no kernel and raises.
+@torch.library.custom_op("repro_torch::bitunpack", mutates_args=(),
+                         device_types="cpu")
+def _bitunpack_op(words: torch.Tensor, bits: int, n: int) -> torch.Tensor:
+    return bitunpack_plain(words, bits, n)
+
+
+@_bitunpack_op.register_kernel("cuda")
+def _bitunpack_cuda(words: torch.Tensor, bits: int, n: int) -> torch.Tensor:
+    return _launch(words, bits, n)
+
+
+@_bitunpack_op.register_fake
+def _bitunpack_fake(words: torch.Tensor, bits: int, n: int) -> torch.Tensor:
+    return words.new_empty((n,), dtype=torch.int32)
+
+
 def bitunpack_groups(words: torch.Tensor, bits: int, n: int) -> torch.Tensor:
-    """(G, bits) int32 -> (n,) int32 on the words' device: the kernel
-    for a CUDA tensor, the plain version for a CPU tensor."""
+    """(G, bits) int32 -> (n,) int32 on the words' device, through the
+    ``repro_torch::bitunpack`` operator: the kernel for a CUDA tensor,
+    the plain version for a CPU tensor, the result's shape alone for a
+    fake one."""
     _check(words, bits, n)
-    if words.device.type == "cuda":
-        return _launch(words, bits, n)
-    if words.device.type == "cpu":
-        return bitunpack_plain(words, bits, n)
-    raise ValueError(f"unsupported device {words.device}")
+    if words.device.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"unsupported device {words.device}")
+    return _bitunpack_op(words, bits, n)
 
 
 def bitunpack(words: torch.Tensor, *, bits: int) -> torch.Tensor:

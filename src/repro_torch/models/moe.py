@@ -111,7 +111,11 @@ def _moe_math(cfg: ArchConfig, x: torch.Tensor, router, w1, w3, w2,
     gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
 
     # ---- aux losses ----
-    counts = torch.bincount(idx.reshape(-1), minlength=E).float()
+    # a fixed-length count (``bincount``'s length follows the data,
+    # which a fake tensor mode cannot trace); exact integers either way
+    counts = torch.zeros(E, dtype=torch.float32, device=dev).scatter_add_(
+        0, idx.reshape(-1), torch.ones(T * k, dtype=torch.float32,
+                                       device=dev))
     frac_routed = counts / (T * k)
     mean_prob = probs.mean(0)
     aux = E * torch.sum(frac_routed * mean_prob) * m.aux_loss_coef

@@ -698,7 +698,9 @@ def _reference_tree(leaves: dict[str, torch.Tensor]) -> dict:
     """Leaves keyed by parameter name -> the reference's nested tree of
     fresh host tensors in their dtypes: each stacked leaf copied entry
     by entry into one host tensor (so the card holds no second copy),
-    ``pre_blocks`` a list."""
+    ``pre_blocks`` a list.  A sharded leaf (``sharding.is_sharded``)
+    raises ``ValueError``: its block is not the leaf the name says."""
+    _refuse_sharded(leaves.items())
     sizes = _stacks(leaves)
     items: dict[tuple, torch.Tensor] = {}
     for name, t in leaves.items():
@@ -713,23 +715,33 @@ def _reference_tree(leaves: dict[str, torch.Tensor]) -> dict:
     return _nest(items)
 
 
+def _refuse_sharded(named) -> None:
+    for name, t in named:
+        if is_sharded(t):
+            raise ValueError(
+                f"{name} is this rank's block of a sharded parameter, not "
+                "the leaf its name says: gather it "
+                "(sharded_state_to_reference)")
+
+
 def train_state_to_reference(state: dict) -> dict:
     """The reference's train-state tree of a port train state
     (``steps.init_train_state``): params, ``m`` and ``v`` in the
     reference's layout, and ``step``; fresh host tensors in the state's
-    dtypes (bf16 stays bf16), the layout a train checkpoint keeps."""
-    opt = state["opt"]
-    return {"params": _reference_tree(state["params"]),
-            "opt": {"m": _reference_tree(opt["m"]),
-                    "v": _reference_tree(opt["v"]),
-                    "step": opt["step"].detach().to("cpu", copy=True)}}
+    dtypes (bf16 stays bf16), the layout a train checkpoint keeps.  A
+    sharded state (``steps.shard_train_state``) raises ``ValueError``
+    (``sharded_state_to_reference`` gathers it)."""
+    return sharded_state_to_reference(state, None, writer=True)
 
 
 def train_state_from_reference(model: nn.Module, tree) -> dict:
     """A port train state from the reference's tree (numpy-convertible
     or tensor leaves): the params are copied into ``model``, which the
     state then holds; ``m``, ``v`` (their stored dtype) and ``step``
-    (0-d int32) land on the model's device."""
+    (0-d int32) land on the model's device.  A model whose parameters
+    are sharded raises ``ValueError`` (``sharded_state_from_reference``
+    fills its blocks)."""
+    _refuse_sharded(model.named_parameters())
     params_from_reference(model, tree["params"])
     params = dict(model.named_parameters())
     dev = model.device
@@ -743,3 +755,109 @@ def train_state_from_reference(model: nn.Module, tree) -> dict:
     return {"params": params,
             "opt": {"m": moments(opt["m"]), "v": moments(opt["v"]),
                     "step": step.reshape(())}}
+
+
+# --------------------------------------------------------------------------
+# a sharded train state and the reference's tree, leaf by leaf
+# --------------------------------------------------------------------------
+
+
+def _state_parts(state: dict):
+    """(part, the state's tree of it) of params, ``m`` and ``v``."""
+    opt = state["opt"]
+    return (("params", state["params"]), ("m", opt["m"]), ("v", opt["v"]))
+
+
+@torch.no_grad()
+def sharded_state_to_reference(state: dict, rules, writer: bool):
+    """The reference's train-state tree of a sharded state
+    (``steps.shard_train_state``), whole, as fresh host tensors on the
+    ``writer`` rank, None on the others.  Every rank calls it together:
+    each parameter's and moment's block is gathered whole on every rank
+    (``sharding.gather_whole``) one at a time, in the parameters' order,
+    on the caller's thread; the writer copies it into its host leaf and
+    every rank drops it, so a rank holds its blocks and one whole
+    parameter at a time.  With ``rules`` None the state must not be
+    sharded, and is copied (``train_state_to_reference``)."""
+    params = state["params"]
+    if rules is None:
+        _refuse_sharded(params.items())
+    sizes = _stacks(params)
+    items: dict[tuple, torch.Tensor] = {}
+    for part, tree in _state_parts(state):
+        for name, t in tree.items():
+            p = params[name]
+            whole = t.detach()
+            if is_sharded(p):
+                spec = shd.fitted(rules, p.fsdp_spec, p.fsdp_shape)
+                whole = shd.gather_whole(whole, spec, rules)
+            if not writer:
+                continue
+            path, index = reference_path(name)
+            key = (part, *path)
+            if not index:
+                items[key] = whole.to("cpu", copy=True)
+                continue
+            if key not in items:
+                items[key] = torch.empty((*sizes[path], *whole.shape),
+                                         dtype=whole.dtype)
+            items[key][index].copy_(whole)
+            del whole
+    if not writer:
+        return None
+    tree = _nest(items)
+    return {"params": tree["params"],
+            "opt": {"m": tree["m"], "v": tree["v"],
+                    "step": state["opt"]["step"].detach().to("cpu",
+                                                             copy=True)}}
+
+
+@torch.no_grad()
+def sharded_state_from_reference(model: nn.Module, state: dict, tree,
+                                 rules, writer: int = 0) -> dict:
+    """Fill ``state``, a sharded state of ``model`` (its values are
+    overwritten), from the reference's whole tree, which rank ``writer``
+    of the default process group holds (the others pass None): for each
+    parameter and moment in the parameters' order the writer cuts every
+    rank's block of its fitted spec from the whole host leaf and scatters
+    them (bytes, on the host), each rank copying its own into its block;
+    the step is broadcast.  Every rank calls it together, and every rank
+    ends with the blocks ``shard_train_state`` gives of that tree."""
+    import torch.distributed as dist
+
+    params = state["params"]
+    shape = tuple(shd.mesh_sizes(rules.mesh).values())
+    n = dist.get_world_size()
+    if n != int(np.prod(shape)):
+        raise ValueError(f"{n} ranks for a mesh of {shape}")
+    me = dist.get_rank()
+    leaves = None
+    if me == writer:
+        leaves = {part: _reference_leaves(model, sub) for part, sub in (
+            ("params", tree["params"]), ("m", tree["opt"]["m"]),
+            ("v", tree["opt"]["v"]))}
+    for part, sub in _state_parts(state):
+        for name, block in sub.items():
+            p = params[name]
+            cut = rules.named(shd.fitted(rules, p.fsdp_spec, p.fsdp_shape)) \
+                if is_sharded(p) else None
+            mine = torch.empty(block.numel() * block.element_size(),
+                               dtype=torch.uint8)
+            parts = None
+            if me == writer:
+                whole = leaves[part][name].to(block.dtype)
+                parts = [_as_bytes(whole if cut is None else shd.local_shard(
+                    whole, cut, coord=np.unravel_index(r, shape)))
+                    for r in range(n)]
+            dist.scatter(mine, parts, src=writer)
+            block.copy_(mine.view(block.dtype).view(block.shape))
+    step = torch.zeros(1, dtype=torch.int64)
+    if me == writer:
+        step[0] = int(_leaf(tree["opt"]["step"]))
+    dist.broadcast(step, src=writer)
+    state["opt"]["step"].fill_(int(step[0]))
+    return state
+
+
+def _as_bytes(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().to("cpu").contiguous().reshape(-1).view(torch.uint8)

@@ -50,7 +50,8 @@ def reference_decay(params: dict) -> dict[str, bool]:
             for n, p in params.items()}
 
 
-def make_train_step(model, opt_cfg: OptConfig, *, microbatches: int = 1):
+def make_train_step(model, opt_cfg: OptConfig, *, microbatches: int = 1,
+                    on_microbatch=None):
     """Returns ``train_step(state, batch) -> (state, metrics)``; the
     state is updated in place and returned.
 
@@ -64,6 +65,9 @@ def make_train_step(model, opt_cfg: OptConfig, *, microbatches: int = 1):
     On a sharded state (``shard_train_state``) under active rules the
     accumulators are the blocks' shapes, and ``loss`` is the reference's
     (the model's metrics carry it: its objective is the rank's share).
+    ``on_microbatch(i)``, if given, is called after micro-batch ``i``'s
+    gradients, loss and metrics are added in (the dry run counts one
+    micro-batch's work from it).
     """
 
     def grad_fn(params: dict, batch: dict):
@@ -97,6 +101,8 @@ def make_train_step(model, opt_cfg: OptConfig, *, microbatches: int = 1):
                 loss = l_i if loss is None else loss + l_i
                 metrics = m_i if metrics is None else {
                     k: metrics[k] + m_i[k] for k in metrics}
+                if on_microbatch is not None:
+                    on_microbatch(i)
             k = float(microbatches)
             grads = {n: g / k for n, g in grads.items()}
             loss = loss / k

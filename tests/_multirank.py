@@ -38,6 +38,35 @@ def _np(x) -> np.ndarray:
     return a.astype(np.float32) if a.dtype.name == "bfloat16" else a
 
 
+def _block_tree(leaves: dict) -> dict:
+    """A rank's blocks, keyed by parameter name, in the reference's
+    tree layout (stacked leaves stacked, ``pre_blocks`` a list): fresh
+    host tensors, to hold against the reference's per-device shards."""
+    from repro_torch.models import transformer as pt_tr
+
+    sizes = pt_tr._stacks(leaves)
+    items: dict = {}
+    for name, t in leaves.items():
+        path, index = pt_tr.reference_path(name)
+        if not index:
+            items[path] = t.detach().to("cpu", copy=True)
+            continue
+        if path not in items:
+            items[path] = torch.empty((*sizes[path], *t.shape),
+                                      dtype=t.dtype)
+        items[path][index].copy_(t.detach())
+    return pt_tr._nest(items)
+
+
+def _block_state(state: dict) -> dict:
+    """:func:`_block_tree` of a sharded train state's params, ``m`` and
+    ``v``, and its step."""
+    opt = state["opt"]
+    return {"params": _block_tree(state["params"]),
+            "opt": {"m": _block_tree(opt["m"]), "v": _block_tree(opt["v"]),
+                    "step": opt["step"].detach().to("cpu", copy=True)}}
+
+
 def _spec_leaves(tree, path=""):
     """(key, spec tuple) of a spec tree of dicts and lists, keys spelled
     as ``jax.tree_util.keystr`` and ``pytree`` spell them."""
@@ -123,16 +152,17 @@ PRELUDE = textwrap.dedent("""
 """)
 
 
-def _reference(prog: str, tmp: Path, core: int = -1, **consts) -> dict:
-    """Run ``prog`` in a subprocess on a 4-device CPU platform, on
-    ``core``; returns the ``.npz`` it writes.  Only the subprocess's
-    environment carries the flags."""
+def _reference(prog: str, tmp: Path, core: int = -1, devices: int = WORLD,
+               **consts) -> dict:
+    """Run ``prog`` in a subprocess on a CPU platform of ``devices``
+    devices (4 by default), on ``core``; returns the ``.npz`` it writes.
+    Only the subprocess's environment carries the flags."""
     env = {**os.environ,
            "PYTHONPATH": os.pathsep.join(
                p for p in (str(ROOT / "src"), os.environ.get("PYTHONPATH"))
                if p),
            "JAX_PLATFORMS": "cpu",
-           "XLA_FLAGS": "--xla_force_host_platform_device_count=4 "
+           "XLA_FLAGS": f"--xla_force_host_platform_device_count={devices} "
                         "--xla_cpu_multi_thread_eigen=false "
                         "intra_op_parallelism_threads=1"}
     head = "".join(f"{k} = {v!r}\n" for k, v in consts.items())

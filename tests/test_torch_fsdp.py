@@ -41,8 +41,8 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
-from _multirank import (_coord, _NamedMesh, _np, _ranks, _reference,
-                        _spec_leaves, _unflatten)
+from _multirank import (_block_state, _block_tree, _coord, _NamedMesh, _np,
+                        _ranks, _reference, _spec_leaves, _unflatten)
 
 from repro_torch import pytree
 from repro_torch.configs import ARCH_IDS, get_config
@@ -196,17 +196,9 @@ def _job_fsdp(rank: int, tmp) -> dict:
         for k, v in shd.COLLECTIVE_BYTES.items():
             out[f"{tag}/bytes/{k}"] = np.array(v)
         c = _coord(mesh.get_coordinate())
-        local = pt_tr.train_state_to_reference(state)
+        local = _block_state(state)
         shapes, specs = pt_steps.abstract_train_state(model)
-        whole = {"params": shd.gather_tree(local["params"], specs["params"],
-                                           shapes["params"], rules),
-                 "opt": {"m": shd.gather_tree(local["opt"]["m"],
-                                              specs["params"],
-                                              shapes["params"], rules),
-                         "v": shd.gather_tree(local["opt"]["v"],
-                                              specs["params"],
-                                              shapes["params"], rules),
-                         "step": local["opt"]["step"]}}
+        whole = pt_tr.sharded_state_to_reference(state, rules, writer=True)
         if compressed:
             err = pt_tr._reference_tree({n: e[0]
                                          for n, e in state["err"].items()})
@@ -490,7 +482,7 @@ def test_shard_train_state_cuts_blocks_and_keeps_decay(coord):
     from repro_torch.models import transformer as pt_tr
     tree = pt_tr._reference_tree(whole)
     blocks = shd.shard_tree(tree, model.abstract()[1], rules)
-    local = pt_tr._reference_tree(dict(state["params"]))
+    local = _block_tree(dict(state["params"]))
     for (k, got), (k2, want) in zip(pytree.flatten_with_keys(blocks),
                                     pytree.flatten_with_keys(local)):
         assert k == k2 and torch.equal(got, want), k

@@ -55,7 +55,8 @@ def test_import_pulls_in_no_jax_and_no_reference():
             "repro_torch.launch", "repro_torch.launch.serve",
             "repro_torch.train", "repro_torch.train.optimizer",
             "repro_torch.train.steps", "repro_torch.train.trainer",
-            "repro_torch.launch.train"} <= set(mods)
+            "repro_torch.launch.train", "repro_torch.launch.dryrun",
+            "repro_torch.launch.op_analysis"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

@@ -53,8 +53,8 @@ import math
 import numpy as np
 import pytest
 import torch
-from _multirank import (_coord, _NamedMesh, _np, _ranks, _reference,
-                        _spec_leaves, _unflatten)
+from _multirank import (_block_state, _coord, _NamedMesh, _np, _ranks,
+                        _reference, _spec_leaves, _unflatten)
 
 from repro_torch import pytree
 from repro_torch.configs import ARCH_IDS, get_config
@@ -255,15 +255,12 @@ def _train(tag, case, inits, out) -> None:
     for k, v in shd.COLLECTIVE_BYTES.items():
         out[f"{tag}/bytes/{k}"] = np.array(v)
     c = _coord(mesh.get_coordinate())
-    local = pt_tr.train_state_to_reference(state)
+    local = _block_state(state)
     shapes, specs = pt_steps.abstract_train_state(model)
 
     def whole_of(tree, r=rules):
         return shd.gather_tree(tree, specs["params"], shapes["params"], r)
-    whole = {"params": whole_of(local["params"]),
-             "opt": {"m": whole_of(local["opt"]["m"]),
-                     "v": whole_of(local["opt"]["v"]),
-                     "step": local["opt"]["step"]}}
+    whole = pt_tr.sharded_state_to_reference(state, rules, writer=True)
     if compressed:
         err = pt_tr._reference_tree({n: e[0] for n, e in state["err"].items()})
         whole["err"] = whole_of(err, dataclasses.replace(

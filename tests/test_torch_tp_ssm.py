@@ -50,7 +50,8 @@ import re
 import numpy as np
 import pytest
 import torch
-from _multirank import _coord, _NamedMesh, _np, _ranks, _reference, _unflatten
+from _multirank import (_block_state, _coord, _NamedMesh, _np, _ranks,
+                        _reference, _unflatten)
 
 from repro_torch import pytree
 from repro_torch.configs import get_config
@@ -209,15 +210,8 @@ def _train(tag, arch, inits, mesh, out) -> None:
     for k, v in shd.COLLECTIVE_BYTES.items():
         out[f"{tag}/bytes/{k}"] = np.array(v)
     c = _coord(mesh.get_coordinate())
-    local = pt_tr.train_state_to_reference(state)
-    shapes, specs = pt_steps.abstract_train_state(model)
-
-    def whole_of(tree):
-        return shd.gather_tree(tree, specs["params"], shapes["params"], rules)
-    whole = {"params": whole_of(local["params"]),
-             "opt": {"m": whole_of(local["opt"]["m"]),
-                     "v": whole_of(local["opt"]["v"]),
-                     "step": local["opt"]["step"]}}
+    local = _block_state(state)
+    whole = pt_tr.sharded_state_to_reference(state, rules, writer=True)
     for k, v in pytree.flatten_with_keys(whole):
         out[f"{tag}/state{k}"] = _np(v)
     for k, v in pytree.flatten_with_keys(local):
