@@ -43,8 +43,8 @@
    distinct copies) over the table's objects; the filter -> agg stays
    exact, scrub finds and heals exactly the injected copies and a second
    scrub finds none; transient failures on one OSD are retried.
-10. Maintenance: a second table of the same schema and a quarter of the
-    rows (2^26, for the script's time) in 1 MiB
+10. Maintenance: a second table of the same schema and an eighth of the
+    rows (2^25, for the script's time) in 1 MiB
     objects in a fresh store, compacted (8 MiB policy), scrubbed,
     rebalanced and aged by the four daemons while a client thread loops
     the filter -> agg (each result held against numpy); then
@@ -60,7 +60,7 @@
 13. Serve: yi_9b at its published widths and depth (48 layers, d_model
     4096, 32 heads / 4 KV heads of 128, d_ff 11008, vocab 64000), bf16,
     random weights from ``--seed``, through ``ServeEngine.generate``: 8
-    requests of 256-1024 prompt tokens, 16 new tokens each, a 4096-slot
+    requests of 256-1024 prompt tokens, 8 new tokens each, a 4096-slot
     cache (3.22 GB) parked to a fresh store and resumed bit-equal; a
     2^26-row request log (``examples/serve_pushdown.py``'s columns) in
     another fresh store, one filter -> agg per request from 8 threads
@@ -187,6 +187,15 @@
     ``train_4k`` on (2, 16, 16); each record's per-rank peak memory,
     FLOPs, wire bytes and dominant roofline term (the H100's peaks).
     It fails if a cell fails.
+28. The examples, each through its ``main(argv)`` on the card as a user
+    runs it, under its own wall clock: ``examples/quickstart_torch.py``
+    and ``examples/serve_pushdown_torch.py`` as they stand (their own
+    assertions: scans, faults, the tiny LM, the maintenance plane, the
+    registry pass; served tokens, the KV cache revived bit-exact, the
+    request log's counts), and ``examples/train_e2e_torch.py --preset
+    100m`` (12 layers, d_model 768, float32, 8 x 256 tokens a step) for
+    40 steps with an OSD killed at step 20, its loss falling; each must
+    launch ``bitunpack`` (scans, packed ingest).
 
 Each path runs with the kernels' launch counts set to 0 just before it
 and read just after; every kernel of a path must have launched (the
@@ -194,7 +203,8 @@ checkpoint and KV paths decode nothing and launch no kernel, nor does
 the flash backward; the serve path launches ``bitunpack`` in its
 analytics scans, the train paths once a step; so do the mixture-of-
 experts and recurrent serve and train paths, and the invariants launch
-none; in the multi-device path each rank launches it once a step).  The
+none; in the multi-device path each rank launches it once a step; each
+example launches it).  The
 line before the last two is the ``kernels`` JSON object; the last line
 is ``{"ok": true, "device": {...}}``; any failure raises and the exit
 code is non-zero.  Needs a CUDA device and a checkout of the
@@ -209,6 +219,7 @@ import argparse
 import collections
 import dataclasses
 import gc
+import importlib.util
 import json
 import os
 import re
@@ -239,13 +250,13 @@ KERNELS = ("bitunpack", "filter_agg", "block_agg")
 INGEST_VOCAB, INGEST_SEQ, INGEST_BATCH = 102_400, 4096, 256
 INGEST_SEQS, INGEST_STEPS = 4096, 8
 MAINT_OBJECT_BYTES = 1 << 20   # the maintenance path's small objects
-MAINT_ROWS_LOG2 = 26           # its table: a quarter of the main path's, for time
+MAINT_ROWS_LOG2 = 25           # its table: an eighth of the main path's, for time
 # serve: yi_9b (src/repro/configs/yi_9b.py:14-29) with 8 requests of
 # 256-1024 prompt tokens; the longest is exactly 1024, because the
 # reference's flash attention needs a padded prompt longer than 512
 # tokens to be a multiple of 512 (attention.py:114)
 SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT = "yi_9b", 8, (256, 1024)
-SERVE_MAX_NEW, SERVE_MAX_SEQ = 16, 4096
+SERVE_MAX_NEW, SERVE_MAX_SEQ = 8, 4096   # 8 new tokens: the script's time
 SERVE_LOG_ROWS_LOG2 = 26       # the request log's rows
 SERVE_CLIENTS = 8
 # the invariant of tests/test_models.py:57-86 at full width: (prefill,
@@ -997,6 +1008,16 @@ def _drive(core, fmt, bu, store, table, n) -> dict:
             "traced_filter_agg_device_busy_share": busy_ms / 1e3 / traced_s}
 
 
+# the examples (phase 28): examples/quickstart_torch.py and
+# examples/serve_pushdown_torch.py as they stand, and
+# examples/train_e2e_torch.py at its 100m preset (its full width: 12
+# layers, d_model 768, 8 x 256 tokens a step, float32) for a cut number
+# of steps with an OSD killed half way, each through its main(argv) on
+# the card as a user runs it
+EXAMPLES = ("quickstart_torch", "serve_pushdown_torch", "train_e2e_torch")
+EXAMPLE_E2E_PRESET, EXAMPLE_E2E_STEPS, EXAMPLE_E2E_KILL = "100m", 40, 20
+
+
 # --------------------------------------------------------------------------
 # device pushdown phase
 # --------------------------------------------------------------------------
@@ -1605,7 +1626,8 @@ MOE_PATHS = ("moe serve", "moe train")
 SSM_PATHS = tuple(f"{a} {p}" for a in SSM_ARCHS
                   for p in ("serve", "train"))
 PATHS = PLANE_PATHS + TRAIN_PATHS + MOE_PATHS + SSM_PATHS + (
-    "multi-device", "fsdp", "model axis", "recurrent model axis")
+    "multi-device", "fsdp", "model axis", "recurrent model axis",
+    "examples")
 
 
 def table_planes(P, store, table: dict, seed: int, card: str) -> dict:
@@ -4049,6 +4071,75 @@ def recurrent_tp_path(P, dev, seed: int, card: str) -> dict:
 
 
 # --------------------------------------------------------------------------
+# the examples (phase 28)
+# --------------------------------------------------------------------------
+
+
+def _example(name: str):
+    """``examples/<name>.py`` of this checkout, loaded as a module."""
+    path = Path(__file__).resolve().parent / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"example_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_path(P, dev, seed: int, card: str) -> dict:
+    """Phase 28: the three examples through their ``main(argv)`` on the
+    card, each under its own wall clock and launch counts (zeroed just
+    before it, read just after); every one must launch ``bitunpack``.
+    An example's failure fails the script."""
+    out_dir = Path(tempfile.mkdtemp(prefix="examples_torch_"))
+    argv = {"quickstart_torch": [],
+            "serve_pushdown_torch": ["--seed", str(seed)],
+            "train_e2e_torch": [
+                "--preset", EXAMPLE_E2E_PRESET, "--steps",
+                str(EXAMPLE_E2E_STEPS), "--kill-osd-at",
+                str(EXAMPLE_E2E_KILL), "--seed", str(seed), "--out",
+                str(out_dir / f"train_e2e_torch_{EXAMPLE_E2E_PRESET}.json")]}
+    res, total = {}, collections.Counter()
+    try:
+        for name in EXAMPLES:
+            mod = _example(name)
+            print(f"example {name} {' '.join(argv[name])}", flush=True)
+            _zero_counts(P)
+            t = time.perf_counter()
+            got = mod.main(argv[name])
+            _sync(dev)
+            wall = time.perf_counter() - t
+            launches = _counts(P)
+            res[name] = {"wall_s": wall, "launches": launches, "out": got}
+            total.update(launches)
+            print(f"example {name}: wall {wall:.3f} s, launches "
+                  f"{launches}  [{card}]", flush=True)
+            if not launches["bitunpack"]:
+                raise AssertionError(f"example {name} launched no "
+                                     f"bitunpack: {launches}")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    serve, e2e = res["serve_pushdown_torch"]["out"], \
+        res["train_e2e_torch"]["out"]
+    print(f"examples: quickstart {res['quickstart_torch']['wall_s']:.3f} s "
+          f"(tiny LM loss {res['quickstart_torch']['out']['loss_first']:.4f}"
+          f" -> {res['quickstart_torch']['out']['loss_last']:.4f}); serve "
+          f"{res['serve_pushdown_torch']['wall_s']:.3f} s, "
+          f"{serve['tokens']} tokens in {serve['serve_s'] * 1e3:.3f} ms "
+          f"({serve['tokens_per_s']:.1f} tokens/s); train_e2e "
+          f"{EXAMPLE_E2E_PRESET} ({e2e['params_m']:.1f}M params, float32) "
+          f"{res['train_e2e_torch']['wall_s']:.3f} s for {e2e['steps']} "
+          f"steps, {e2e['wall_s_per_step'] * 1e3:.3f} ms a step (steps "
+          f"3-{e2e['steps']}), loss {e2e['loss_first']:.4f} -> "
+          f"{e2e['loss_last']:.4f}, OSD {e2e['killed']['osd']} killed at "
+          f"step {e2e['killed']['step']} ({e2e['killed']['objects_moved']} "
+          f"replicas moved, {e2e['killed']['objects_lost']} lost); "
+          f"bitunpack launches {total['bitunpack']}  [{card}]", flush=True)
+    print(f"reduced: train_e2e_torch --preset {EXAMPLE_E2E_PRESET} at "
+          f"{EXAMPLE_E2E_STEPS} steps (the example's usage runs 300), OSD "
+          f"killed at step {EXAMPLE_E2E_KILL}")
+    return {"launches": dict(total), "walls": {
+        name: r["wall_s"] for name, r in res.items()}}
 
 
 # --------------------------------------------------------------------------
@@ -4316,6 +4407,8 @@ def _phases(args, P, card: str, dev, start: float, dry: list,
     planes["recurrent model axis"] = recurrent_tp_path(P, dev, args.seed,
                                                        card)
     lap("recurrent model axis on one card")
+    planes["examples"] = examples_path(P, dev, args.seed, card)
+    lap("examples")
     dryrun_path(dry, dry_dir, start, card)
     lap("dry run (the rest of its time ran beside the phases above)")
 

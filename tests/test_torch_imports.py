@@ -56,7 +56,11 @@ def test_import_pulls_in_no_jax_and_no_reference():
             "repro_torch.train", "repro_torch.train.optimizer",
             "repro_torch.train.steps", "repro_torch.train.trainer",
             "repro_torch.launch.train", "repro_torch.launch.dryrun",
-            "repro_torch.launch.op_analysis"} <= set(mods)
+            "repro_torch.launch.op_analysis", "repro_torch.analysis",
+            "repro_torch.analysis.base", "repro_torch.analysis.invariants",
+            "repro_torch.analysis.registry", "repro_torch.analysis.cli",
+            "repro_torch.analysis.lockcheck",
+            "repro_torch.analysis.pytest_plugin"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -105,10 +109,15 @@ def _imported_roots(path: Path):
             yield str(node.args[0].value).split(".")[0], node.lineno
 
 
-@pytest.mark.parametrize("where", ["package", "chip_smoke"])
+EXAMPLES = ("quickstart_torch.py", "serve_pushdown_torch.py",
+            "train_e2e_torch.py")
+
+
+@pytest.mark.parametrize("where", ["package", "chip_smoke", "examples"])
 def test_no_import_of_jax_or_reference_in_source(where):
-    files = (sorted(PKG.rglob("*.py")) if where == "package"
-             else [ROOT / "chip_smoke.py"])
+    files = {"package": sorted(PKG.rglob("*.py")),
+             "chip_smoke": [ROOT / "chip_smoke.py"],
+             "examples": [ROOT / "examples" / f for f in EXAMPLES]}[where]
     assert files and all(f.exists() for f in files)
     bad = [(str(f.relative_to(ROOT)), line, mod)
            for f in files for mod, line in _imported_roots(f)
