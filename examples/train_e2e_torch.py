@@ -32,6 +32,7 @@ from repro_torch.core import format as fmt
 from repro_torch.core.partition import PartitionPolicy
 from repro_torch.data.corpus import CorpusSpec, build_corpus
 from repro_torch.data.pipeline import ObjectDataLoader
+from repro_torch.models import attention, layers
 from repro_torch.models.archs import build_model
 from repro_torch.train.optimizer import OptConfig
 from repro_torch.train.trainer import Trainer, TrainerConfig
@@ -104,8 +105,9 @@ def main(argv=None) -> dict:
 def _run(args, dev: torch.device, store) -> dict:
     p = PRESETS[args.preset]
     cfg = make_cfg(p)
+    switches = {"HEAD_TP": attention.HEAD_TP, "XENT_MM": layers.XENT_MM}
     print(f"[e2e] {args.preset}: {cfg.param_count() / 1e6:.1f}M params "
-          f"on {dev}")
+          f"on {dev}; " + " ".join(f"{k}={v}" for k, v in switches.items()))
 
     vol = GlobalVOL(store)
     n_seqs = max(args.steps * p["batch"] // 4, 512)  # ~4 epochs
@@ -129,7 +131,7 @@ def _run(args, dev: torch.device, store) -> dict:
     def summary(history) -> dict:
         losses = [h["loss"] for h in history]
         return {
-            "preset": args.preset, "device": str(dev),
+            "preset": args.preset, "device": str(dev), "switches": switches,
             "params_m": cfg.param_count() / 1e6,
             "steps_done": len(losses), "steps_target": args.steps,
             "loss_first": losses[0], "loss_last": losses[-1],

@@ -13,9 +13,10 @@ fraction of each leaf's largest entry, for the params in absolute terms
 and as the share of a leaf's entries outside rtol 1e-5 / atol 1e-4.
 
 Run from the root of a checkout:
-  PYTHONPATH=src python scripts/fsdp_spread.py [arch] [strategy]
-(default zamba2_2p7b fsdp_dp on (pod 2, data 1, model 2); ~1 min on the
-CPU)
+  PYTHONPATH=src python scripts/fsdp_spread.py [arch] [strategy] [head_tp]
+(default zamba2_2p7b fsdp_dp on (pod 2, data 1, model 2) with the
+reference's HEAD_TP "padded"; "head_dim" flips it in the subprocesses;
+~1 min on the CPU)
 """
 
 from __future__ import annotations
@@ -40,10 +41,10 @@ jax.devices()
 from repro.launch.dryrun import resolve_tree    # after the backend starts
 from repro.configs import base
 from repro.distributed import sharding as shd
-from repro.models import inputs
+from repro.models import attention, inputs
 from repro.models.archs import build_model
 from repro.train import optimizer as opt, steps
-arch, strategy, out = sys.argv[1:4]
+arch, strategy, out, attention.HEAD_TP = sys.argv[1:5]
 cfg = base.get_config(arch, smoke=True)
 model = build_model(cfg, remat="full")
 state = jax.jit(lambda k: steps.init_train_state(model, k))(
@@ -73,13 +74,14 @@ np.savez(out, norms=np.array(norms), **leaves)
 def main() -> None:
     arch = sys.argv[1] if len(sys.argv) > 1 else "zamba2_2p7b"
     strategy = sys.argv[2] if len(sys.argv) > 2 else "fsdp_dp"
+    head_tp = sys.argv[3] if len(sys.argv) > 3 else "padded"
     tmp = Path(tempfile.mkdtemp())
     runs = {}
     for name, flags in (("one thread", ONE), ("default threads", MANY)):
         out = tmp / f"{len(runs)}.npz"
         env = dict(os.environ, XLA_FLAGS=flags, JAX_PLATFORMS="cpu")
-        subprocess.run([sys.executable, "-c", RUN, arch, strategy, str(out)],
-                       env=env, check=True)
+        subprocess.run([sys.executable, "-c", RUN, arch, strategy, str(out),
+                        head_tp], env=env, check=True)
         runs[name] = np.load(out)
     a, b = runs.values()
     for name, z in runs.items():

@@ -33,12 +33,12 @@ to the config's number.  ``tests/test_torch_dryrun.py`` holds the
 carried counts equal to the full run's at a small depth
 (``run_cell(scale=False)`` runs the config's whole depth).
 
-Variants set the switches the port has (``attention.FLASH_IMPL``,
-``transformer.KV_CACHE_QUANT``, packed ingest and the int8 pod hop); a
-variant that also flips a switch the port does not have (the
-reference's ``HEAD_TP = "head_dim"``, ``XENT_MM = "mixed"``) names it
-in the record's ``switches_not_ported``: its numbers are the port's
-without that switch, not the reference's variant.
+Variants set the reference's switches as its dry run sets them
+(``attention.FLASH_IMPL`` and ``HEAD_TP``, ``layers.XENT_MM``,
+``transformer.KV_CACHE_QUANT``, packed ingest and the int8 pod hop),
+before the model is built; each record names them (``switches``), and
+its ``switches_not_ported`` (a switch of the reference's variant that
+the port lacks) is empty.
 
 The roofline uses an H100 SXM's published peaks (989 TFLOP/s dense
 bf16, 3.35 TB/s HBM3, 450 GB/s of NVLink a direction), not the
@@ -153,29 +153,34 @@ def cell_path(rec_or_key, results: pathlib.Path | None = None
 
 def variant_switches(variant: str) -> tuple[dict, list[str]]:
     """(the port's switches, the reference's switches the variant flips
-    that the port does not have).  The reference's variants: baseline
-    (scan flash, float32-cast logits, ``head_dim`` head TP), flashvjp
-    (the flash backward), optimized and everything built on it (mixed-
-    precision logits, padded head TP), kvint8 (the int8 decode cache)."""
+    that the port does not have: none), as ``repro/launch/dryrun.py``
+    sets them for each variant: baseline (scan flash, float32-cast
+    logits, ``head_dim`` head TP), flashvjp (the flash backward),
+    optimized and everything built on it (mixed-precision logits, padded
+    head TP), kvint8 (the int8 decode cache)."""
     early = variant in ("baseline", "flashvjp")
     port = {"FLASH_IMPL": "scan" if variant == "baseline" else "vjp",
+            "HEAD_TP": "head_dim" if early else "padded",
+            "XENT_MM": "cast" if early else "mixed",
             "KV_CACHE_QUANT": variant == "kvint8"}
-    missing = ["HEAD_TP=head_dim"] if early else ["XENT_MM=mixed"]
-    return port, missing
+    return port, []
 
 
 @contextlib.contextmanager
 def _switches(variant: str):
-    from repro_torch.models import attention, transformer
+    from repro_torch.models import attention, layers, transformer
 
     port, _ = variant_switches(variant)
-    old = attention.FLASH_IMPL, transformer.KV_CACHE_QUANT
-    attention.FLASH_IMPL = port["FLASH_IMPL"]
-    transformer.KV_CACHE_QUANT = port["KV_CACHE_QUANT"]
+    home = {"FLASH_IMPL": attention, "HEAD_TP": attention,
+            "XENT_MM": layers, "KV_CACHE_QUANT": transformer}
+    old = {k: getattr(home[k], k) for k in port}
+    for k, v in port.items():
+        setattr(home[k], k, v)
     try:
         yield
     finally:
-        attention.FLASH_IMPL, transformer.KV_CACHE_QUANT = old
+        for k, v in old.items():
+            setattr(home[k], k, v)
 
 
 # --------------------------------------------------------------------------
@@ -498,6 +503,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
     rec: dict = {"arch": arch, "shape": shape_name, "mesh": mesh,
                  "variant": variant, "remat": remat, "ok": False,
                  "device": device,
+                 "switches": variant_switches(variant)[0],
                  "switches_not_ported": variant_switches(variant)[1]}
     cfg = get_config(arch, smoke=smoke)
     if shape_name not in cfg.supported_shapes:
@@ -630,7 +636,9 @@ def main(argv=None) -> None:
                           flush=True)
                 elif rec["ok"]:
                     r = rec["roofline"]
+                    sw = rec["switches"]
                     print(f"[dryrun] {key}: OK {rec['wall_s']:.1f}s "
+                          f"HEAD_TP={sw['HEAD_TP']} XENT_MM={sw['XENT_MM']} "
                           f"dom={r['dominant']} "
                           f"frac={r['roofline_fraction']:.2f} peak_hbm="
                           f"{rec['memory']['peak_hbm_bytes'] / 2**30:.2f}GiB",

@@ -9,7 +9,9 @@ and accumulates the keys of ``hlo_analysis.analyze``:
 
   flops       matrix products and convolutions, by the formulas of
               ``torch.utils.flop_counter`` (2 * m * n * k a product, as
-              the reference's analyzer counts a ``dot``)
+              the reference's analyzer counts a ``dot``), the mixed
+              product's ``mm.dtype`` / ``bmm.dtype`` (``layers.
+              mixed_einsum``) as ``mm`` / ``bmm``
   bytes       per operator: its tensor operands read once and its
               results written once; views and metadata queries move
               nothing
@@ -92,6 +94,17 @@ def _tensors(x):
 _VIEW, _FREE_OP, _C10D_OP, _COMPUTE = range(4)
 
 
+def _without_dtype(formula):
+    """A flop formula for an overload that adds an ``out_dtype``
+    argument (``aten::bmm.dtype``): the formula of its packet, given the
+    tensors' shapes alone."""
+    def count(*args, **kwargs):
+        kwargs.pop("out_dtype", None)
+        return formula(*(a for a in args if not isinstance(a, torch.dtype)),
+                       **kwargs)
+    return count
+
+
 def _classify(func) -> tuple:
     """(category, detail) of an operator, once per operator."""
     ns, _, op = func._schema.name.partition("::")
@@ -101,7 +114,11 @@ def _classify(func) -> tuple:
         return (_VIEW, None)
     if op in _FREE:
         return (_FREE_OP, None)
-    return (_COMPUTE, flop_registry.get(func._overloadpacket))
+    formula = flop_registry.get(func._overloadpacket)
+    if formula is not None and any(a.name == "out_dtype"
+                                   for a in func._schema.arguments):
+        formula = _without_dtype(formula)
+    return (_COMPUTE, formula)
 
 
 def _group_size(func, args) -> int:

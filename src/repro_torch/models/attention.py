@@ -10,14 +10,16 @@ reference's:
 Prefill attention is the reference's online softmax over (q-block,
 kv-block) pairs (``_flash_fwd_scan``), written as two Python loops of
 plain torch ops, not SDPA, so its numbers and masking are the
-reference's: scores in float32 from operands upcast before the product,
-masked scores ``s * mask + _NEG * (1 - mask)``, the probabilities cast
-to the values' dtype before the value product, and ``acc / max(l,
-1e-20)``.  Query head h reads KV head h // G (``repeat_interleave``).
+reference's: scores a mixed product (``layers.mixed_einsum``: the
+operands in their dtype, a float32 result), masked scores ``s * mask +
+_NEG * (1 - mask)``, the probabilities cast to the values' dtype before
+the mixed value product, and ``acc / max(l, 1e-20)``.  Query head h
+reads KV head h // G (``repeat_interleave``).
 Its backward is the reference's FlashAttention backward
 (``_flash_core_bwd``) as a ``torch.autograd.Function``: scores
-recomputed per block pair from the saved LSE, dq per query block, dk
-and dv accumulated in float32 and folded from the G query heads onto
+recomputed per block pair (a mixed product) from the saved LSE, its
+other four products in float32 as the reference's, dq per query block,
+dk and dv accumulated in float32 and folded from the G query heads onto
 their KV head.
 
 Decode attends one query against the cache and writes the new K and V
@@ -25,28 +27,41 @@ into it in place at ``min(pos, S - 1)`` (the reference's
 ``dynamic_update_slice`` clamps the same way), with keys
 ``arange(S) <= pos`` valid and a plain softmax.
 
-Under the model axis (``distributed.sharding``), as the reference's
-``HEAD_TP = "padded"`` lays it out: ``wq`` and ``wo`` (MLA: also ``wuk``
-and ``wuv``) hold the rank's slice of the heads, ``wk`` / ``wv`` / ``wdkv``
-are whole, and each rank attends with its query heads against the KV
-heads they read; ``wo``'s output is then the rank's partial sum, which
-the caller adds up (``layers.tp_combine``).  Where the model axis does
-not divide the heads the weights are whole and the layer runs unsplit.
+Under the model axis (``distributed.sharding``) a GQA layer is laid out
+as the reference's ``HEAD_TP`` says when the model is built
+(``attention_specs``).  ``"padded"``: ``wq`` and ``wo`` (MLA, whatever
+``HEAD_TP``: also ``wuk`` and ``wuv``) hold the rank's slice of the
+heads, ``wk`` / ``wv`` / ``wdkv`` are whole, and each rank attends with
+its query heads against the KV heads they read; where the model axis
+does not divide the heads the weights are whole and the layer runs
+unsplit.  ``"head_dim"`` (where ``n_heads % 16 != 0``, the reference's
+rule): ``wq``, ``wk``, ``wv`` and ``wo`` hold the rank's slice of the
+head dimension, the contraction.  q and k are all-gathered for the
+rotate-half RoPE (dimension i pairs with i + hd/2, which another rank
+holds) and cut back; each block pair's scores are the rank's partial
+sum, all-reduced before the online softmax (the reference's
+"psum-per-block"), and in the backward the recomputed scores, ``dp`` and
+``D`` likewise; the values and dq, dk, dv are the rank's slices.  Either
+way ``wo``'s output is the rank's partial sum, which the caller adds up
+(``layers.tp_combine``).
 Decode against a cache cut on the sequence over ``sp`` (a ``sharding.
 AxisGroup``: each rank holds its block of the positions) is the
 reference's sharded softmax made explicit: the query heads all-gathered
-over the model axis, each rank's max, sum of exponentials and weighted
-values over its own positions, combined over ``sp`` (flash-decode),
-the rank's ``wo`` slice applied and the output all-reduced.  Only the
-rank that owns position ``min(pos, S - 1)`` writes it.
+over the model axis (under ``"head_dim"``: q, k and v all-gathered on
+the head dimension after the projection, so RoPE, quantization and the
+cache write see whole vectors), each rank's max, sum of exponentials
+and weighted values over its own positions, combined over ``sp``
+(flash-decode), the rank's ``wo`` slice applied and the output
+all-reduced.  Only the rank that owns position ``min(pos, S - 1)``
+writes it.
 
 MLA (DeepSeek-V2) prefill up-projects the latent and runs the same
 flash attention with K == H, q and k of nope + rope = 192 and v of 128
 (scale ``192 ** -0.5``).  Its decode is the absorbed form over the
 latent cache ``(B, S, r)`` + ``(B, S, rope)``, with the reference's
 dtypes: ``q_lat`` a product in the compute dtype, both score products
-in float32 (operands upcast, which is exact for bf16), the softmax
-weights cast to the cache's dtype before the value product.
+mixed (a float32 result), the softmax weights cast to the cache's dtype
+before the value product.
 """
 
 from __future__ import annotations
@@ -57,9 +72,13 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed import sharding as shd
-from repro_torch.models.layers import _param, apply_rope
+from repro_torch.models.layers import _param, apply_rope, mixed_einsum
 
 _NEG = -1e30
+
+# the GQA layers' layout over the model axis, read when a model is built
+# (the reference's switch): "padded" (heads) or "head_dim"
+HEAD_TP = "padded"
 
 
 # --------------------------------------------------------------------------
@@ -75,6 +94,39 @@ def init_attention(cfg: ArchConfig, device=None) -> nn.ParameterDict:
         "wk": _param((d, K, hd), dt, device),
         "wv": _param((d, K, hd), dt, device),
         "wo": _param((H, hd, d), dt, device)})
+
+
+def attention_specs(cfg: ArchConfig) -> dict:
+    """The logical specs of a GQA layer's weights, keyed (``"attn"``,
+    leaf), as the reference's ``init_attention`` returns them under
+    ``HEAD_TP``: the heads on ``tp`` where ``n_heads % 16 == 0`` or
+    ``HEAD_TP`` is ``"padded"``, else the head dimension.  MLA's are
+    not this switch's (``init_mla`` does not read it): empty."""
+    if cfg.attention == "mla":
+        return {}
+    if HEAD_TP not in ("padded", "head_dim"):
+        raise ValueError(f"HEAD_TP {HEAD_TP!r} is not 'padded' or "
+                         "'head_dim'")
+    if cfg.n_heads % 16 == 0 or HEAD_TP == "padded":
+        specs = {"wq": ("fsdp", "tp", None), "wk": ("fsdp", None, None),
+                 "wv": ("fsdp", None, None), "wo": ("tp", None, "fsdp")}
+    else:
+        specs = {"wq": ("fsdp", None, "tp"), "wk": ("fsdp", None, "tp"),
+                 "wv": ("fsdp", None, "tp"), "wo": (None, "tp", "fsdp")}
+    return {("attn", k): v for k, v in specs.items()}
+
+
+def head_split(cfg: ArchConfig, p):
+    """(the model axis's ``AxisGroup``, the dimension of q / k / v it
+    splits: 2 the heads, 3 the head dimension) of a layer whose weights
+    ``p`` hold the rank's slice, read from ``wq``'s shape; (None, None)
+    where they are whole and the layer runs unsplit."""
+    wq = p["wq"]
+    if wq.shape[1] != cfg.n_heads:
+        return shd.tp_group(cfg.n_heads, wq.shape[1]), 2
+    if "wk" in p and wq.shape[2] != cfg.head_dim:
+        return shd.tp_group(cfg.head_dim, wq.shape[2]), 3
+    return None, None
 
 
 def init_mla(cfg: ArchConfig, device=None) -> nn.ParameterDict:
@@ -123,49 +175,73 @@ def _masked_out(causal: bool, q_offset: int, i: int, bq: int,
     return causal and j > q_offset + i + bq - 1
 
 
-def _scores(q_i: torch.Tensor, k_j: torch.Tensor, causal: bool,
-            qp: torch.Tensor, j: int, scale: float):
-    """Scaled float32 scores (B, H, bq, bk) of one block pair, masked as
-    the reference masks them, and the mask (None when not causal)."""
-    s = torch.einsum("bqhd,bkhd->bhqk", q_i, k_j.float()) * scale
+def _sum_over(x: torch.Tensor, tp) -> torch.Tensor:
+    """``x``, a partial sum over the rank's slice of the head dimension,
+    summed over ``tp`` (None: ``x``); with autograd where it is on."""
+    if tp is None:
+        return x
+    if torch.is_grad_enabled():
+        return shd.all_reduce(x, tp.group)
+    return shd.all_reduce_(x.contiguous(), tp.group)
+
+
+def _mask(s: torch.Tensor, causal: bool, qp: torch.Tensor, j: int):
+    """Scores masked as the reference masks them, and the mask (None
+    when not causal)."""
     if not causal:
         return s, None
-    kp = torch.arange(j, j + k_j.shape[1], device=s.device)
+    kp = torch.arange(j, j + s.shape[-1], device=s.device)
     mask = (qp[:, None] >= kp[None, :]).float()
     return s * mask + _NEG * (1.0 - mask), mask
 
 
+def _scores(q_i: torch.Tensor, k_j: torch.Tensor, causal: bool,
+            qp: torch.Tensor, j: int, scale: float, tp=None):
+    """Scaled float32 scores (B, H, bq, bk) of one block pair, a mixed
+    product (summed over ``tp`` where q and k are the rank's slice of
+    the head dimension), masked, and the mask (None when not causal)."""
+    s = _sum_over(mixed_einsum("bqhd,bkhd->bhqk", q_i, k_j), tp) * scale
+    return _mask(s, causal, qp, j)
+
+
 def _fwd_step(q_i, k_j, v_j, m, l, acc, qp, j: int, causal: bool,
-              scale: float, G: int):
+              scale: float, G: int, tp=None):
     """One online-softmax step: (m, l, acc) after key block ``j``."""
     k_j = k_j.repeat_interleave(G, dim=2)
     v_rep = v_j.repeat_interleave(G, dim=2)
-    s, mask = _scores(q_i, k_j, causal, qp, j, scale)
+    s, mask = _scores(q_i, k_j, causal, qp, j, scale, tp)
     m_new = torch.maximum(m, s.amax(-1))
     p = torch.exp(s - m_new[..., None])
     if causal:
         p = p * mask                             # zero masked entries
     corr = torch.exp(m - m_new)
     l = l * corr + p.sum(-1)
-    pv = torch.einsum("bhqk,bkhd->bhqd", p.to(v_j.dtype).float(),
-                      v_rep.float())
+    pv = mixed_einsum("bhqk,bkhd->bhqd", p.to(v_j.dtype), v_rep)
     return m_new, l, acc * corr[..., None] + pv
 
 
+def _scale(q: torch.Tensor, tp) -> float:
+    """The scores' ``hd ** -0.5`` of the whole head dimension (``q``'s,
+    times ``tp``'s ranks where it is the rank's slice)."""
+    return (q.shape[-1] * (1 if tp is None else tp.size)) ** -0.5
+
+
 def _flash_fwd(q, k, v, causal: bool, q_offset: int, bq: int, bk: int,
-               checkpoint_inner: bool = False):
+               checkpoint_inner: bool = False, tp=None):
     """The block loop: (out (B, Sq, H, hdv) in q's dtype, LSE (B, H, Sq)
     float32).  ``checkpoint_inner`` runs each step under
-    ``torch.utils.checkpoint`` (the "scan" route's backward)."""
+    ``torch.utils.checkpoint`` (the "scan" route's backward).  ``tp``:
+    q, k and v are the rank's slices of the head dimension (the scores
+    summed over it per block pair; ``out`` the rank's slice)."""
     B, Sq, H, hd = q.shape
     _, Sk, K, hdv = v.shape
     G = H // K
-    scale = hd ** -0.5
+    scale = _scale(q, tp)
     dev = q.device
     out = torch.empty((B, Sq, H, hdv), dtype=q.dtype, device=dev)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
     for i in range(0, Sq, bq):
-        q_i = q[:, i:i + bq].float()
+        q_i = q[:, i:i + bq]
         qp = q_offset + torch.arange(i, i + bq, device=dev)
         m = torch.full((B, H, bq), _NEG, dtype=torch.float32, device=dev)
         l = torch.zeros((B, H, bq), dtype=torch.float32, device=dev)
@@ -174,7 +250,7 @@ def _flash_fwd(q, k, v, causal: bool, q_offset: int, bq: int, bk: int,
             if _masked_out(causal, q_offset, i, bq, j):
                 break
             args = (q_i, k[:, j:j + bk], v[:, j:j + bk], m, l, acc, qp, j,
-                    causal, scale, G)
+                    causal, scale, G, tp)
             if checkpoint_inner:
                 m, l, acc = checkpoint(_fwd_step, *args, use_reentrant=False)
             else:
@@ -189,29 +265,33 @@ class _FlashAttention(torch.autograd.Function):
     """``_flash_core_fwd`` / ``_flash_core_bwd`` of the reference."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, q_offset, bq, bk):
-        out, lse = _flash_fwd(q, k, v, causal, q_offset, bq, bk)
+    def forward(ctx, q, k, v, causal, q_offset, bq, bk, tp):
+        out, lse = _flash_fwd(q, k, v, causal, q_offset, bq, bk, tp=tp)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.args = (causal, q_offset, bq, bk)
+        ctx.args = (causal, q_offset, bq, bk, tp)
         return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        causal, q_offset, bq, bk = ctx.args
+        causal, q_offset, bq, bk, tp = ctx.args
         B, Sq, H, hd = q.shape
         _, Sk, K, hdv = v.shape
         G = H // K
-        scale = hd ** -0.5
+        scale = _scale(q, tp)
         dev = q.device
         # D_i = rowsum(dout * out) in float32, the softmax-grad diagonal
-        D = torch.einsum("bshd,bshd->bhs", dout.float(), out.float())
+        # (with ``tp``: summed over the head dimension's slices, as the
+        # recomputed scores and dp below are)
+        D = _sum_over(torch.einsum("bshd,bshd->bhs", dout.float(),
+                                   out.float()), tp)
         dq = torch.empty_like(q)
         dk = torch.zeros((B, Sk, K, hd), dtype=torch.float32, device=dev)
         dv = torch.zeros((B, Sk, K, hdv), dtype=torch.float32, device=dev)
         for i in range(0, Sq, bq):
-            q_i = q[:, i:i + bq].float()
+            q_b = q[:, i:i + bq]
+            q_i = q_b.float()
             do_i = dout[:, i:i + bq].float()
             L_i = lse[:, :, i:i + bq, None]
             D_i = D[:, :, i:i + bq, None]
@@ -221,13 +301,17 @@ class _FlashAttention(torch.autograd.Function):
             for j in range(0, Sk, bk):
                 if _masked_out(causal, q_offset, i, bq, j):
                     break
-                k_rep = k[:, j:j + bk].repeat_interleave(G, dim=2).float()
+                k_b = k[:, j:j + bk].repeat_interleave(G, dim=2)
+                k_rep = k_b.float()
                 v_rep = v[:, j:j + bk].repeat_interleave(G, dim=2).float()
-                s, mask = _scores(q_i, k_rep, causal, qp, j, scale)
+                s = mixed_einsum("bqhd,bkhd->bhqk", q_b, k_b)
+                dp = torch.einsum("bqhd,bkhd->bhqk", do_i, v_rep)
+                if tp is not None:     # one all-reduce of both partials
+                    s, dp = _sum_over(torch.stack([s, dp]), tp).unbind()
+                s, mask = _mask(s * scale, causal, qp, j)
                 p = torch.exp(s - L_i)                  # (B, H, bq, bk)
                 if causal:
                     p = p * mask
-                dp = torch.einsum("bqhd,bkhd->bhqk", do_i, v_rep)
                 ds = p * (dp - D_i) * scale
                 dq_i = dq_i + torch.einsum("bhqk,bkhd->bqhd", ds, k_rep)
                 # fold the G query heads of a group onto their KV head
@@ -236,7 +320,8 @@ class _FlashAttention(torch.autograd.Function):
                 dk[:, j:j + bk] += dk_j.reshape(B, -1, K, G, hd).sum(3)
                 dv[:, j:j + bk] += dv_j.reshape(B, -1, K, G, hdv).sum(3)
             dq[:, i:i + bq] = dq_i.to(q.dtype)
-        return dq, dk.to(k.dtype), dv.to(v.dtype), None, None, None, None
+        return (dq, dk.to(k.dtype), dv.to(v.dtype), None, None, None, None,
+                None)
 
 
 def flash_attention(
@@ -249,15 +334,16 @@ def flash_attention(
     block_q: int = 512,
     block_k: int = 512,
     impl: str | None = None,
+    tp=None,                  # q, k, v the rank's head-dimension slices
 ) -> torch.Tensor:
     bq, bk = _blocks(q, v, block_q, block_k)
     impl = impl or FLASH_IMPL
     if impl == "vjp":
-        return _FlashAttention.apply(q, k, v, causal, q_offset, bq, bk)
+        return _FlashAttention.apply(q, k, v, causal, q_offset, bq, bk, tp)
     if impl != "scan":
         raise ValueError(f"flash_attention: unknown impl {impl!r}")
     return _flash_fwd(q, k, v, causal, q_offset, bq, bk,
-                      checkpoint_inner=torch.is_grad_enabled())[0]
+                      checkpoint_inner=torch.is_grad_enabled(), tp=tp)[0]
 
 
 # --------------------------------------------------------------------------
@@ -265,10 +351,16 @@ def flash_attention(
 # --------------------------------------------------------------------------
 
 
-def _qkv(cfg: ArchConfig, p, x: torch.Tensor, positions: torch.Tensor):
+def _qkv(cfg: ArchConfig, p, x: torch.Tensor, positions: torch.Tensor,
+         hd_group=None):
+    """q and k roped, and v.  ``hd_group``: the weights hold the rank's
+    slice of the head dimension, and q, k and v are all-gathered on it
+    (no autograd: decode) before RoPE, whole."""
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    if hd_group is not None:
+        q, k, v = (shd.all_gather_dim(t, 3, hd_group) for t in (q, k, v))
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta), v)
 
@@ -292,12 +384,15 @@ def _local_kv(k: torch.Tensor, v: torch.Tensor, head0: int, n: int,
 def gqa_forward(cfg: ArchConfig, p, x: torch.Tensor,
                 positions: torch.Tensor, *, q_offset: int = 0,
                 kv_out: bool = False):
-    """Prefill attention.  Returns (out, (k, v)) — k/v (every KV head)
-    for the cache; with ``wq`` / ``wo`` the rank's head slice, ``out``
-    is its partial sum."""
+    """Prefill attention.  Returns (out, (k, v)) — k/v (every KV head,
+    the whole head dimension) for the cache; with the weights the rank's
+    slice of the heads or of the head dimension, ``out`` is its partial
+    sum."""
+    tp, dim = head_split(cfg, p)
+    if dim == 3:
+        return _gqa_forward_hd(cfg, p, x, positions, tp, q_offset, kv_out)
     q, k, v = _qkv(cfg, p, x, positions)
     n = q.shape[2]
-    tp = shd.tp_group(cfg.n_heads, n)
     k_h, v_h = _local_kv(k, v, 0 if tp is None else tp.index * n, n,
                          cfg.n_heads // cfg.n_kv_heads)
     o = flash_attention(q, k_h, v_h, causal=True, q_offset=q_offset)
@@ -305,12 +400,38 @@ def gqa_forward(cfg: ArchConfig, p, x: torch.Tensor,
     return out, ((k, v) if kv_out else None)
 
 
+def _gqa_forward_hd(cfg: ArchConfig, p, x: torch.Tensor,
+                    positions: torch.Tensor, tp, q_offset: int,
+                    kv_out: bool):
+    """:func:`gqa_forward` with the weights the rank's slice of the head
+    dimension (``HEAD_TP = "head_dim"``): q and k all-gathered for RoPE
+    (autograd: the backward reduce-scatters), cut back to the rank's
+    slice; flash sums each block pair's scores over ``tp``; ``out`` is
+    the rank's partial sum through its rows of ``wo``."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    n = q.shape[3]
+    mine = slice(tp.index * n, (tp.index + 1) * n)
+    q = apply_rope(shd.all_gather(q, 3, tp.group), positions, cfg.rope_theta)
+    k = apply_rope(shd.all_gather(k, 3, tp.group), positions, cfg.rope_theta)
+    o = flash_attention(q[..., mine], k[..., mine], v, causal=True,
+                        q_offset=q_offset, tp=tp)
+    out = torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    if not kv_out:
+        return out, None
+    return out, (k, shd.all_gather(v, 3, tp.group))
+
+
 def _decode_qkv(cfg: ArchConfig, p, x: torch.Tensor, pos):
-    """``pos`` as a 0-d int32 tensor, and q, k, v of one token there."""
+    """``pos`` as a 0-d int32 tensor, the layer's ``head_split``, and
+    q, k, v of one token there (whole on the head dimension)."""
     B = x.shape[0]
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
-    q, k, v = _qkv(cfg, p, x, pos.expand(B, 1))
-    return pos, q, k, v
+    tp, dim = head_split(cfg, p)
+    q, k, v = _qkv(cfg, p, x, pos.expand(B, 1),
+                   hd_group=tp.group if dim == 3 else None)
+    return pos, (tp, dim), q, k, v
 
 
 def _write(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
@@ -353,20 +474,24 @@ def _attend(s: torch.Tensor, vals: torch.Tensor, spec: str, sp,
         return torch.einsum(spec, w.to(vals.dtype), vals)
     top = shd.all_reduce_(s.amax(-1), sp.group, shd.reduce_op("max"))
     e = torch.exp(s - top[..., None])
-    ew = e.to(vals.dtype).float() if v_scale is None else e * v_scale
-    o = torch.einsum(spec, ew, vals.float())
+    if v_scale is None:
+        o = mixed_einsum(spec, e.to(vals.dtype), vals)
+    else:
+        o = torch.einsum(spec, e * v_scale, vals.float())
     both = shd.all_reduce_(torch.cat([o, e.sum(-1)[..., None]], -1),
                            sp.group)
     o = both[..., :-1] / both[..., -1:]
     return o if v_scale is not None else o.to(vals.dtype)
 
 
-def _heads_out(o: torch.Tensor, wo: torch.Tensor, tp) -> torch.Tensor:
-    """(B, H, hd) values of every head -> (B, 1, D) through the rank's
-    ``wo`` head slice, summed over the model axis."""
+def _heads_out(o: torch.Tensor, wo: torch.Tensor, split) -> torch.Tensor:
+    """(B, H, hd) values of every head -> (B, 1, D) through ``wo``; with
+    ``split`` (``head_split``'s) the rank's slice of the heads or of the
+    head dimension, summed over the model axis."""
+    tp, dim = split
     if tp is not None:
-        n = wo.shape[0]
-        o = o[:, tp.index * n:(tp.index + 1) * n]
+        n = wo.shape[dim - 2]
+        o = o.narrow(dim - 1, tp.index * n, n)
     out = torch.einsum("bhk,hkd->bd", o, wo)[:, None, :]
     return out if tp is None else shd.all_reduce_(out, tp.group)
 
@@ -380,19 +505,17 @@ def gqa_decode(cfg: ArchConfig, p, x: torch.Tensor, pos,
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // K
     B, S = k_cache.shape[0], k_cache.shape[1]
-    pos, q, k, v = _decode_qkv(cfg, p, x, pos)
+    pos, split, q, k, v = _decode_qkv(cfg, p, x, pos)
     _write(k_cache, k, pos, sp)
     _write(v_cache, v, pos, sp)
-    tp = shd.tp_group(H, q.shape[2])
-    if tp is not None:                 # every head reads the rank's block
-        q = shd.all_gather_dim(q, 2, tp.group)
+    if split[1] == 2:                  # every head reads the rank's block
+        q = shd.all_gather_dim(q, 2, split[0].group)
 
     qg = q.reshape(B, K, G, hd)        # query head h reads kv head h // G
-    s = torch.einsum("bkgd,bskd->bkgs", qg.float(),
-                     k_cache.float()) * (hd ** -0.5)
+    s = mixed_einsum("bkgd,bskd->bkgs", qg, k_cache) * (hd ** -0.5)
     s = torch.where(_valid(S, pos, sp, x.device), s, _NEG)
     o = _attend(s, v_cache, "bkgs,bskd->bkgd", sp)
-    out = _heads_out(o.reshape(B, H, hd), p["wo"], tp)
+    out = _heads_out(o.reshape(B, H, hd), p["wo"], split)
     return out.to(x.dtype), k_cache, v_cache
 
 
@@ -418,26 +541,27 @@ def gqa_decode_q8(cfg: ArchConfig, p, x: torch.Tensor, pos,
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // K
     B, S = k_cache.shape[0], k_cache.shape[1]
-    pos, q, k, v = _decode_qkv(cfg, p, x, pos)
+    pos, split, q, k, v = _decode_qkv(cfg, p, x, pos)
     kq, ks = quantize_kv(k)
     vq, vs = quantize_kv(v)
     _write(k_cache, kq, pos, sp)
     _write(v_cache, vq, pos, sp)
     _write(k_scale, ks, pos, sp)
     _write(v_scale, vs, pos, sp)
-    tp = shd.tp_group(H, q.shape[2])
-    if tp is not None:                 # every head reads the rank's block
-        q = shd.all_gather_dim(q, 2, tp.group)
+    if split[1] == 2:                  # every head reads the rank's block
+        q = shd.all_gather_dim(q, 2, split[0].group)
 
     qg = q.reshape(B, K, G, hd)
-    # dequant folded into the contraction: s = (q . k_int8) * scale
-    s = torch.einsum("bkgd,bskd->bkgs", qg.float(),
-                     k_cache.float()) * (hd ** -0.5)
+    # dequant folded into the contraction: s = (q . k_int8) * scale, a
+    # mixed product of q and the int8 values in q's dtype (exact: |k| <=
+    # 127), as the reference's float32 product of the two upcast
+    s = mixed_einsum("bkgd,bskd->bkgs", qg,
+                     k_cache.to(qg.dtype)) * (hd ** -0.5)
     s = s * k_scale.transpose(1, 2)[:, :, None, :]
     s = torch.where(_valid(S, pos, sp, x.device), s, _NEG)
     o = _attend(s, v_cache, "bkgs,bskd->bkgd", sp,
                 v_scale=v_scale.transpose(1, 2)[:, :, None, :])
-    out = _heads_out(o.reshape(B, H, hd).to(x.dtype), p["wo"], tp)
+    out = _heads_out(o.reshape(B, H, hd).to(x.dtype), p["wo"], split)
     return out.to(x.dtype), k_cache, v_cache, k_scale, v_scale
 
 
@@ -498,9 +622,8 @@ def mla_decode(cfg: ArchConfig, p, x: torch.Tensor, pos,
         q_lat = shd.all_gather_dim(q_lat, 1, tp.group)
         q_rope = shd.all_gather_dim(q_rope, 1, tp.group)
     scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
-    s = (torch.einsum("bhr,bsr->bhs", q_lat.float(), ckv_cache.float())
-         + torch.einsum("bhp,bsp->bhs", q_rope.float(),
-                        krope_cache.float())) * scale
+    s = (mixed_einsum("bhr,bsr->bhs", q_lat, ckv_cache)
+         + mixed_einsum("bhp,bsp->bhs", q_rope, krope_cache)) * scale
     s = torch.where(_valid(S, pos, sp, x.device), s, _NEG)
     o_lat = _attend(s, ckv_cache, "bhs,bsr->bhr", sp)
     if tp is not None:

@@ -11,11 +11,16 @@ uninitialised on ``device``; the model's ``init`` fills them
 
 Numerics follow the reference: norms and rope compute in float32 and
 cast back, layernorm's variance has ddof 0, gelu is the tanh
-approximation (``jax.nn.gelu``'s default), and the loss's logits are
-float32 from operands upcast before the product.
+approximation (``jax.nn.gelu``'s default).  The reference's products
+with ``preferred_element_type=jnp.float32`` (bf16 operands, a float32
+result) are :func:`mixed_einsum`; the loss's head product is one of them
+under ``XENT_MM = "mixed"`` (the reference's default), float32 from
+operands upcast before the product under ``"cast"``.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -23,6 +28,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+
+# the loss's head product, the reference's switch: "mixed" (its default:
+# bf16 operands, a float32 result) or "cast" (both operands upcast)
+XENT_MM = "mixed"
 
 # --------------------------------------------------------------------------
 # init helpers
@@ -40,6 +49,98 @@ def dense_init_(w: torch.Tensor, d_in: int,
     z = torch.randn(w.shape, generator=generator, dtype=torch.float32,
                     device=w.device)
     w.copy_(z.mul_(d_in ** -0.5))
+
+
+# --------------------------------------------------------------------------
+# the mixed product: bf16 operands, a float32 result
+# --------------------------------------------------------------------------
+
+class _MixedBmm(torch.autograd.Function):
+    """``bmm`` of 16-bit operands into a float32 result (``aten::bmm.
+    dtype``): the operands stay in their dtype, the result is never
+    rounded.  The backward is the reference's gradient of a
+    ``preferred_element_type=float32`` product (``jax.grad``'s jaxpr):
+    the float32 cotangent times the other operand upcast, a float32
+    product cast to the operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.bmm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        return mixed_bmm_grads(*ctx.saved_tensors, g, ctx.needs_input_grad)
+
+
+def mixed_bmm_grads(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor,
+                    needs=(True, True)):
+    """The gradients of ``a`` and ``b`` of a mixed ``bmm`` with float32
+    cotangent ``g``, in ``a``'s and ``b``'s dtypes (None where not
+    ``needs``)."""
+    ga = gb = None
+    if needs[0]:
+        ga = torch.bmm(g, b.transpose(1, 2).float()).to(a.dtype)
+    if needs[1]:
+        gb = torch.bmm(a.transpose(1, 2).float(), g).to(b.dtype)
+    return ga, gb
+
+
+def _bmm_plan(spec: str):
+    """An einsum of two operands as one batched product: (a's
+    subscripts, b's, the output's, its batch, a-only, b-only and
+    contracted subscripts).  Every subscript must be in the output or
+    in both operands."""
+    ins, out = spec.replace(" ", "").split("->")
+    sa, sb = ins.split(",")
+    batch = [c for c in out if c in sa and c in sb]
+    m = [c for c in out if c in sa and c not in sb]
+    n = [c for c in out if c in sb and c not in sa]
+    k = [c for c in sa if c in sb and c not in out]
+    if sorted(sa) != sorted(batch + m + k) or \
+            sorted(sb) != sorted(batch + k + n) or \
+            len(out) != len(batch + m + n):
+        raise ValueError(f"mixed_einsum: {spec!r} is not one batched "
+                         "product")
+    return sa, sb, out, batch, m, n, k
+
+
+def mixed_einsum(spec: str, a: torch.Tensor, b: torch.Tensor
+                 ) -> torch.Tensor:
+    """``einsum(spec, a, b)`` of bf16 (or float32) operands as a float32
+    result with float32 accumulation: jax's ``preferred_element_type=
+    jnp.float32``.  On a CPU tensor, the plain version: both operands
+    upcast, one float32 einsum (a bf16 x bf16 product is exact in
+    float32).  On a CUDA tensor with both operands 16-bit, one
+    ``aten::bmm.dtype`` (``_MixedBmm``) on the operands as they are: no
+    float32 copy of either, the result never rounded to bf16; with a
+    float32 operand, the other upcast and a float32 einsum, as the
+    reference promotes mixed operands."""
+    if a.device.type == "cpu" or a.dtype == torch.float32 \
+            or b.dtype == torch.float32:
+        return torch.einsum(spec, a.float(), b.float())
+    return as_bmm(spec, a, b, _MixedBmm.apply)
+
+
+def as_bmm(spec: str, a: torch.Tensor, b: torch.Tensor, bmm
+           ) -> torch.Tensor:
+    """``einsum(spec, a, b)`` through one ``bmm(a3, b3)``: each operand
+    permuted and reshaped to (batch, rows, depth) / (batch, depth,
+    columns), the product reshaped and permuted to ``spec``'s output."""
+    sa, sb, out, batch, m, n, k = _bmm_plan(spec)
+    size = {**dict(zip(sb, b.shape)), **dict(zip(sa, a.shape))}
+
+    def prod(cs):
+        return math.prod(size[c] for c in cs)
+
+    a3 = a.permute([sa.index(c) for c in batch + m + k]).reshape(
+        prod(batch), prod(m), prod(k))
+    b3 = b.permute([sb.index(c) for c in batch + k + n]).reshape(
+        prod(batch), prod(k), prod(n))
+    r = bmm(a3, b3)
+    order = batch + m + n
+    return r.reshape([size[c] for c in order]).permute(
+        [order.index(c) for c in out])
 
 
 # --------------------------------------------------------------------------
@@ -174,15 +275,28 @@ def embed_tokens(p, tokens: torch.Tensor, dtype) -> torch.Tensor:
     return F.embedding(ids, p["tok"]).to(dtype)
 
 
-def _xent_chunk(h: torch.Tensor, head_f: torch.Tensor, lab: torch.Tensor,
+def head_logits(h: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """The loss's float32 logits ``h @ head`` as ``XENT_MM`` computes
+    them: "mixed", the operands as they are (:func:`mixed_einsum`: no
+    float32 copy of the (D, V) head on the card); "cast", both upcast."""
+    if XENT_MM == "mixed":
+        return mixed_einsum("bcd,dv->bcv", h, head)
+    if XENT_MM != "cast":
+        raise ValueError(f"XENT_MM {XENT_MM!r} is not 'mixed' or 'cast'")
+    return h.float() @ head.float()
+
+
+def _xent_chunk(h: torch.Tensor, head: torch.Tensor, lab: torch.Tensor,
                 tp=None):
     """One chunk's (nll sum, z sum, count, correct) as 0-d float32.
-    With ``tp`` (a ``sharding.AxisGroup``) ``head_f`` is the rank's slice
+    With ``tp`` (a ``sharding.AxisGroup``) ``head`` is the rank's slice
     of the vocabulary, the ``tp.index``-th: the logsumexp's maximum
     (detached) and its sum of exponentials, and the target logit, are
     added up over the group, and the argmax is the group's, the lowest
-    index winning ties as ``argmax`` does."""
-    logits = h.float() @ head_f                           # (B, c, V)
+    index winning ties as ``argmax`` does.  The head's gradient leaves
+    each chunk in its dtype, so a bf16 head's chunk gradients add up in
+    bf16, as the reference's scan adds them."""
+    logits = head_logits(h, head)                         # (B, c, V)
     lab = lab.long()
     v0 = 0 if tp is None else tp.index * logits.shape[-1]
     hit = torch.arange(v0, v0 + logits.shape[-1],
@@ -220,11 +334,10 @@ def xent_sums(hidden: torch.Tensor, head: torch.Tensor,
     chunk = S // n_chunks
     hs = hidden.reshape(B, n_chunks, chunk, D)
     ls = labels.reshape(B, n_chunks, chunk)
-    head_f = head.float()
     zero = torch.zeros((), dtype=torch.float32, device=hidden.device)
     loss_sum, z_sum, cnt, correct = zero, zero, zero, zero
     for c in range(n_chunks):
-        nll, z, n, hit = checkpoint(_xent_chunk, hs[:, c], head_f, ls[:, c],
+        nll, z, n, hit = checkpoint(_xent_chunk, hs[:, c], head, ls[:, c],
                                     tp, use_reentrant=False)
         loss_sum, z_sum = loss_sum + nll, z_sum + z
         cnt, correct = cnt + n, correct + hit
@@ -240,7 +353,8 @@ def chunked_softmax_xent(
     z_loss: float = 1e-4,
 ):
     """Cross entropy with the vocab projection in S-chunks: the
-    (B, chunk, V) float32 logits block is the peak, never (B, S, V).
+    (B, chunk, V) float32 logits block is the peak, never (B, S, V);
+    the head product as ``XENT_MM`` says (:func:`head_logits`).
     Each chunk runs under ``torch.utils.checkpoint`` (the reference's
     ``jax.checkpoint(body)``), so the backward recomputes one chunk's
     logits at a time instead of keeping every chunk's.

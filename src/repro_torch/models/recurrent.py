@@ -286,8 +286,8 @@ class ZambaModel(_Recurrent):
     def _heads_tp(self, out: torch.Tensor) -> torch.Tensor:
         """The shared attention's output added up over the model axis
         where its heads are split."""
-        tp = shd.tp_group(self.cfg.n_heads, self.shared.attn["wq"].shape[1])
-        return tp_combine(out, tp, None)
+        return tp_combine(out, attn.head_split(self.cfg, self.shared.attn)[0],
+                          None)
 
     def _mlp_tp(self, out: torch.Tensor) -> torch.Tensor:
         """The shared MLP's output added up where its d_ff is split."""

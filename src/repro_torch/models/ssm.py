@@ -15,8 +15,9 @@ Where the port has to choose, it chooses the reference's numbers:
 * RWKV6's exclusive cumsum is ``cum - lw`` and its intra-chunk mask is
   strictly lower; Mamba2's mask includes the diagonal, with the
   inclusive cumsum on both sides;
-* products that the reference asks in float32 (``preferred_element_type``
-  or operands cast first) take operands upcast before the product; its
+* the SSD's ``C.B``, which the reference asks with ``preferred_element_
+  type=float32``, is a mixed product (``layers.mixed_einsum``); the
+  products whose operands it casts to float32 first take them upcast; its
   three-operand einsums are written as two-operand ones (an elementwise
   product, then one contraction), which saves the host a contraction
   path search per call;
@@ -67,7 +68,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed import sharding as shd
-from repro_torch.models.layers import _param, tp_combine
+from repro_torch.models.layers import _param, mixed_einsum, tp_combine
 
 # logical-axis specs of each (part, leaf), as ``init_mamba2`` /
 # ``init_rwkv6`` give them
@@ -181,6 +182,16 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` at bf16 as XLA computes it: ``x * 1 / (1 +
+    exp(-x))``, each step rounded to bf16 (``F.silu`` rounds its bf16
+    result once, which moves a bf16 Mamba2 output by a rounding step in
+    over half of its entries); ``F.silu`` at float32."""
+    if x.dtype == torch.float32:
+        return F.silu(x)
+    return x * (1 / (1 + torch.exp(-x)))
+
+
 def _mamba_gated_out(p, y: torch.Tensor, z: torch.Tensor, x_dtype):
     yf = y.float()
     ms = yf.square().mean(-1, keepdim=True)
@@ -220,7 +231,7 @@ def _ssd_chunk(h0, xk, Bk, Ck, dtk, ak):
     c = xk.shape[1]
     xf, Bf, Cf = xk.float(), Bk.float(), Ck.float()
     cum = torch.cumsum(ak, dim=1)                     # (B,c,H) inclusive
-    G = torch.einsum("btn,bsn->bts", Cf, Bf)
+    G = mixed_einsum("btn,bsn->bts", Ck, Bk)          # (B,c,c) float32
     dec = torch.exp(torch.clamp_max(cum[:, :, None, :] - cum[:, None, :, :],
                                     0.0))             # (B,t,s,H)
     tri = torch.tril(torch.ones((c, c), dtype=torch.float32,
@@ -249,7 +260,7 @@ def mamba2_forward(cfg: ArchConfig, p, x: torch.Tensor,
 
     tp, heads = _mamba_heads(cfg, p)
     z, xs_raw, B_, C_, dt = _mamba_proj(p, x, heads)
-    xs = F.silu(_causal_conv(xs_raw, p["conv_w"]))
+    xs = _silu(_causal_conv(xs_raw, p["conv_w"]))
     a_log = -torch.exp(p["A_log"][heads]) * dt        # (B,S,H), <= 0
 
     if state_in is None:
@@ -282,7 +293,7 @@ def mamba2_decode(cfg: ArchConfig, p, x: torch.Tensor, state: dict):
     z, xs, B_, C_, dt = _mamba_proj(p, x, heads)
     window = torch.cat([state["conv"], xs.to(state["conv"].dtype)],
                        dim=1)                         # (B, K, H, P)
-    xs = F.silu(torch.einsum("bkhp,khp->bhp", window, p["conv_w"]))[:, None]
+    xs = _silu(torch.einsum("bkhp,khp->bhp", window, p["conv_w"]))[:, None]
     a = torch.exp(-torch.exp(p["A_log"][heads]) * dt[:, 0])   # (B,H)
     kv = ((xs[:, 0].float() * dt[:, 0, :, None])[..., None]
           * B_[:, 0].float()[:, None, None, :])

@@ -89,7 +89,9 @@ KV_CACHE_QUANT = False
 REMAT_POLICIES = ("none", "dots", "full")
 
 # logical-axis specs of each (part, leaf), as the reference's init
-# functions give them (``blocks`` leaves get a leading None for L)
+# functions give them (``blocks`` leaves get a leading None for L); a
+# model's own ``SPECS`` take the GQA layers' from ``attention.
+# attention_specs`` when it is built (the reference's ``HEAD_TP``)
 PARAM_SPECS = {
     ("embed", "tok"): ("fsdp", None), ("embed", "head"): ("fsdp", "tp"),
     **{(part, k): (None,) for part in ("ln1", "ln2", "final_norm")
@@ -181,6 +183,8 @@ class LanguageModel(nn.Module):
                              f"{REMAT_POLICIES}")
         self.cfg = cfg
         self.remat = remat
+        # fixed at build, as the reference's init returns them
+        self.SPECS = {**type(self).SPECS, **attn.attention_specs(cfg)}
         self.embed = init_embed(cfg, device)
 
     @property
@@ -353,8 +357,7 @@ class TransformerLM(LanguageModel):
         forward = attn.mla_forward if cfg.attention == "mla" \
             else attn.gqa_forward
         a_out, kv = forward(cfg, blk.attn, a_in, positions, kv_out=kv_out)
-        tp = shd.tp_group(cfg.n_heads, blk.attn["wq"].shape[1])
-        h = h + tp_combine(a_out, tp, seq)
+        h = h + tp_combine(a_out, attn.head_split(cfg, blk.attn)[0], seq)
         f_out, aux = self._ffn(blk, apply_norm(cfg, blk.ln2, h), seq)
         return h + f_out, aux, kv
 

@@ -120,6 +120,19 @@ class _NamedMesh:
         return axis
 
 
+def _built(cfg, head_tp: str, device: str = "cpu", **kw):
+    """The port's model of ``cfg`` built under ``attention.HEAD_TP =
+    head_tp``, which fixes its specs; the flag is restored."""
+    from repro_torch.models import attention
+    from repro_torch.models.archs import build_model
+
+    attention.HEAD_TP = head_tp
+    try:
+        return build_model(cfg, device=device, **kw)
+    finally:
+        attention.HEAD_TP = "padded"
+
+
 # ------------------------------------------- the reference's subprocesses
 PRELUDE = textwrap.dedent("""
     import os, sys

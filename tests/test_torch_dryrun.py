@@ -16,8 +16,9 @@ Gates:
 - smoke configs on a (data 2, model 4) mesh (``CELLS``): the port's
   per-device argument bytes equal those of the reference's compiled
   cell (``memory_analysis``, built as its ``build_cell`` builds one,
-  with the switches the port has: scan flash, float32-cast logits,
-  padded head TP) exactly, and its FLOPs a device within ``FLOP_RTOL``
+  with the switches its dry run sets for the cells' variant, baseline:
+  scan flash, float32-cast logits, ``head_dim`` head TP; the port's run
+  sets the same) exactly, and its FLOPs a device within ``FLOP_RTOL``
   of the reference's ``hlo_analysis`` count, a serving cell's on a
   (data 8, model 1) mesh, and on (data 2, model 4) at most
   ``MESH_OVER`` above it (``test_flops_...`` says where they part and
@@ -70,6 +71,9 @@ FLOP_RTOL = 0.10
 FLOP_NOTED = 0.02
 # Measured on these cells (port over reference): train +0.35% (rwkv6_3b)
 # to +3.42% (deepseek_v2_lite_16b); serving equal on FLAT, above on MESH.
+# With the baseline's HEAD_TP "head_dim" and "cast": train +0.35%
+# (rwkv6_3b), +1.88% (zamba2_2p7b), +2.11% (yi_9b), +3.42%
+# (deepseek_v2_lite_16b); serving equal on FLAT.
 RECOMPUTE = ("torch.utils.checkpoint recomputes every product of a "
              "checkpointed region in the backward (the remat blocks, the "
              "cross-entropy chunks, the scan flash's steps); the compiled "
@@ -79,19 +83,22 @@ RECOMPUTE = ("torch.utils.checkpoint recomputes every product of a "
              "checkpointed)")
 GAPS = {"yi_9b/train": RECOMPUTE, "deepseek_v2_lite_16b/train": RECOMPUTE}
 # a serving cell's FLOPs a device on MESH over the reference's: at least
-# 1 and at most the limit (measured 1.0629, 1.2605, 1.5926 and 1.3679 in
-# this order): the port runs the products of the leaves the model axis
+# 1 and at most the limit (measured 1.0629, 1.0000, 1.5926 and 1.1415 in
+# this order, the cells built as the baseline variant: HEAD_TP
+# "head_dim"; 1.2605 and 1.3679 for yi_9b and zamba2_2p7b with
+# "padded"): the port runs the products of the leaves the model axis
 # leaves whole on every model rank, where GSPMD splits their contraction
 # over it and all-reduces; the cause names those leaves
 MESH_OVER = {
     "deepseek_v2_lite_16b/decode": (1.07, "MLA's wdkv, the MoE router"),
-    "yi_9b/prefill": (1.27, "attn wk and wv: the smoke model's KV heads "
-                            "do not divide the model axis (padded head "
-                            "TP)"),
+    "yi_9b/prefill": (1.001, "none: head_dim splits wq, wk, wv and wo "
+                             "on the head dimension, so no product runs "
+                             "whole on every model rank"),
     "rwkv6_3b/decode": (1.60, "the time mix's wk, wr, wlA and wlB, the "
                               "channel mix's wr_c"),
-    "zamba2_2p7b/decode": (1.37, "the shared attention's wk and wv, "
-                                 "Mamba2's wB, wC and wdt"),
+    "zamba2_2p7b/decode": (1.15, "Mamba2's wB, wC and wdt (head_dim "
+                                 "splits the shared attention's wk and "
+                                 "wv)"),
 }
 # the small-depth check of the carried counts: (arch, kind, mesh shape,
 # layers, global batch)
@@ -148,8 +155,8 @@ for arch in base.registry():
             OUT[t + "/key"] = np.array(cell_path(rec).name)
             OUT[t + "/model_flops"] = np.array(model_flops(cfg, shape))
 
-# the switches the port has
-_attn.FLASH_IMPL, _attn.HEAD_TP = "scan", "padded"
+# the cells' variant, baseline, as repro/launch/dryrun.py sets its switches
+_attn.FLASH_IMPL, _attn.HEAD_TP = "scan", "head_dim"
 _layers.XENT_MM, _tfm.KV_CACHE_QUANT = "cast", False
 def compiled_cell(arch, kind, B, mesh):
     cfg = base.get_config(arch, smoke=True)
@@ -402,7 +409,9 @@ def test_fused_variant_builds_through_packed_words_and_bitunpack(runs):
     _, port, _ = runs
     rec = port["fused"]
     assert rec["ok"], rec.get("traceback")
-    assert rec["switches_not_ported"] == ["XENT_MM=mixed"]
+    assert rec["switches_not_ported"] == []
+    assert rec["switches"] == {"FLASH_IMPL": "vjp", "HEAD_TP": "padded",
+                               "XENT_MM": "mixed", "KV_CACHE_QUANT": False}
     calls = port["fused_calls"]
     assert calls.get("repro_torch.bitunpack.default") == 1, sorted(calls)
     base = port["cell/yi_9b/train"]
@@ -419,11 +428,21 @@ def test_compressed_variant_builds_on_the_pod_axis(runs):
 
 
 def test_variant_switches_name_what_the_port_lacks():
+    """Each variant sets the reference's switches as its dry run sets
+    them (``repro/launch/dryrun.py:201-206``), and the port lacks none."""
     assert dr.variant_switches("baseline") == (
-        {"FLASH_IMPL": "scan", "KV_CACHE_QUANT": False},
-        ["HEAD_TP=head_dim"])
+        {"FLASH_IMPL": "scan", "HEAD_TP": "head_dim", "XENT_MM": "cast",
+         "KV_CACHE_QUANT": False}, [])
+    assert dr.variant_switches("flashvjp") == (
+        {"FLASH_IMPL": "vjp", "HEAD_TP": "head_dim", "XENT_MM": "cast",
+         "KV_CACHE_QUANT": False}, [])
     assert dr.variant_switches("kvint8") == (
-        {"FLASH_IMPL": "vjp", "KV_CACHE_QUANT": True}, ["XENT_MM=mixed"])
+        {"FLASH_IMPL": "vjp", "HEAD_TP": "padded", "XENT_MM": "mixed",
+         "KV_CACHE_QUANT": True}, [])
+    for v in ("optimized", "fused", "compressed"):
+        assert dr.variant_switches(v) == (
+            {"FLASH_IMPL": "vjp", "HEAD_TP": "padded", "XENT_MM": "mixed",
+             "KV_CACHE_QUANT": False}, [])
 
 
 # ======================================================= carried counts

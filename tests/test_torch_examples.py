@@ -57,6 +57,8 @@ def test_train_e2e_tiny_on_cpu(tmp_path):
     assert out["killed"]["step"] == 5 and out["killed"]["objects_lost"] == 0
     assert out["checkpoints"] > 0
     assert out["loss_last"] < out["loss_first"]
+    # the reference's module switches in force, named in the record
+    assert saved["switches"] == {"HEAD_TP": "padded", "XENT_MM": "mixed"}
 
 
 def test_train_e2e_presets_keep_the_references_widths():

@@ -26,8 +26,13 @@ starcoder2_7b (6 heads: ``wq`` / ``wo`` whole while d_ff and the
 vocabulary split) under ``megatron_sp`` on (data 1, model 4);
 musicgen_large under ``tp_dp`` on (data 2, model 2) with 2
 micro-batches; the compressed step of yi_9b under ``megatron_sp`` on
-(pod 2, data 1, model 2).  Serve cases under ``tp_sp`` on (data 2, model
-2): yi_9b at batch 4 and 1 (the cache's sequence over every axis) and
+(pod 2, data 1, model 2); starcoder2_7b again under ``megatron_sp`` on
+(data 1, model 4) with the reference's ``HEAD_TP = "head_dim"`` (its
+flag flipped in its subprocess around the case, the port's when the
+ranks build the model): ``wq``, ``wk``, ``wv`` and ``wo`` split on the
+head dimension.  Serve cases under ``tp_sp`` on (data 2, model
+2): yi_9b at batch 4 and 1 (the cache's sequence over every axis), yi_9b
+at batch 4 under ``head_dim`` and
 deepseek_v2_lite_16b at batch 4 (the latent cache), each a prefill of
 14 tokens into a 32-position cache (``prefill(max_seq=...)``, the
 reference's cache padded as its serve engine pads it) and 4 greedy
@@ -44,23 +49,24 @@ quantizer flips (``_assert_state_close``); metrics at ``METRIC_TOL``,
 within ``LOGIT_TOL`` of the largest logit, greedy tokens exact, each
 rank's cache block at ``TRAIN_TOL``.  Without ranks: every smoke arch's
 parameter layout under ``megatron_sp``, ``tp_dp`` and ``tp_sp`` at (2,
-2) and (1, 4) against the reference's fitted specs (the recurrent
+2) and (1, 4), built under each ``HEAD_TP``, against the reference's
+fitted specs (the recurrent
 families' ``tp`` entries split too: ``tests/test_torch_tp_ssm.py``)."""
 
 import dataclasses
 import math
+import re
 
 import numpy as np
 import pytest
 import torch
-from _multirank import (_block_state, _coord, _NamedMesh, _np, _ranks,
-                        _reference, _spec_leaves, _unflatten)
+from _multirank import (_block_state, _built, _coord, _NamedMesh, _np,
+                        _ranks, _reference, _spec_leaves, _unflatten)
 
 from repro_torch import pytree
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.distributed import sharding as shd
 from repro_torch.models import inputs as pt_inputs
-from repro_torch.models.archs import build_model
 from repro_torch.train import steps as pt_steps
 from test_torch_distributed import (METRIC_TOL, MOE_SMOKE, TRAIN_TOL,
                                     _assert_state_close)
@@ -89,15 +95,24 @@ CASES = {
                              None, False),
     "yi_9b/compressed": ("yi_9b", "megatron_sp", (2, 1, 2), MESH3, 1, None,
                          True),
+    "starcoder2_7b/megatron_sp/head_dim": ("starcoder2_7b", "megatron_sp",
+                                           (1, 4), MESH2, 1, None, False),
 }
 # tag: (arch, batch), served under tp_sp on (data 2, model 2)
 SERVE = {"yi_9b/tp_sp/4": ("yi_9b", 4), "yi_9b/tp_sp/1": ("yi_9b", 1),
-         "deepseek_v2_lite_16b/tp_sp/4": ("deepseek_v2_lite_16b", 4)}
+         "deepseek_v2_lite_16b/tp_sp/4": ("deepseek_v2_lite_16b", 4),
+         "yi_9b/tp_sp/4/head_dim": ("yi_9b", 4)}
+# the cases built with the reference's HEAD_TP = "head_dim" (its flag
+# flipped in its subprocess around the case, the port's in the ranks)
+HEAD_DIM = tuple(t for t in (*CASES, *SERVE) if t.endswith("/head_dim"))
+# archs whose trained state is restored under the other HEAD_TP too
+CROSS_LAYOUT = ("starcoder2_7b",)
 SERVE_MESH = ((2, 2), MESH2)
 ARCHS = sorted({c[0] for c in CASES.values()}
                | {a for a, _ in SERVE.values()})
 TP_STRATEGIES = ("megatron_sp", "tp_dp", "tp_sp")
 LAYOUT_MESHES = {"2x2": ((2, 2), MESH2), "1x4": ((1, 4), MESH2)}
+HEAD_TPS = ("padded", "head_dim")
 CORE = -3   # test_torch_fsdp.py has -2, test_torch_distributed.py -1
 
 
@@ -115,16 +130,31 @@ from repro.models.archs import build_model
 from repro.train import optimizer as opt
 from repro.train import steps
 
-# every smoke arch's fitted specs under the tensor-parallel strategies
-for arch in FIT_ARCHS:
-    shapes, specs = build_model(base.get_config(arch, smoke=True)).abstract()
-    for mname, (shape, names) in MESHES.items():
-        mesh = mesh_of(shape, names)
-        for strategy in TP_STRATEGIES:
-            rules = shd.MeshRules(mesh, strategy=strategy)
-            for k, sh in keyed(resolve_tree(rules, specs, shapes)).items():
-                OUT[f"fit/{arch}/{mname}/{strategy}{k}"] = np.array(
-                    repr(tuple(sh.spec)))
+from repro.models import attention as attn
+
+
+def head_tp(tag):
+    # the reference reads the flag whenever it builds params or specs
+    # (init, abstract), so it stays set for the whole case
+    attn.HEAD_TP = "head_dim" if tag in HEAD_DIM else "padded"
+
+
+# every smoke arch's fitted specs under the tensor-parallel strategies,
+# with HEAD_TP "padded" and "head_dim"
+for layout in HEAD_TPS:
+    attn.HEAD_TP = layout
+    for arch in FIT_ARCHS:
+        shapes, specs = build_model(
+            base.get_config(arch, smoke=True)).abstract()
+        for mname, (shape, names) in MESHES.items():
+            mesh = mesh_of(shape, names)
+            for strategy in TP_STRATEGIES:
+                rules = shd.MeshRules(mesh, strategy=strategy)
+                for k, sh in keyed(resolve_tree(rules, specs,
+                                                shapes)).items():
+                    OUT[f"fit/{layout}/{arch}/{mname}/{strategy}{k}"] = \
+                        np.array(repr(tuple(sh.spec)))
+attn.HEAD_TP = "padded"
 
 inits = {}
 def init_of(arch, model):
@@ -136,6 +166,7 @@ def init_of(arch, model):
     return inits[arch]
 
 for tag, (arch, strategy, shape, names, micro, cf, compressed) in CASES.items():
+    head_tp(tag)
     cfg = base.get_config(arch, smoke=True)
     if cf is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
@@ -173,6 +204,7 @@ for tag, (arch, strategy, shape, names, micro, cf, compressed) in CASES.items():
 mesh = mesh_of(*SERVE_MESH)
 rules = shd.MeshRules(mesh, strategy="tp_sp")
 for tag, (arch, B) in SERVE.items():
+    head_tp(tag)
     cfg = base.get_config(arch, smoke=True)
     model = build_model(cfg, remat="full")
     shapes, specs = model.abstract()
@@ -206,6 +238,7 @@ for tag, (arch, B) in SERVE.items():
     for k, arr in keyed(cache).items():
         for s in arr.addressable_shards:
             OUT[f"{tag}/cache{k}/{coord(mesh, s.device)}"] = host(s.data)
+attn.HEAD_TP = "padded"
 """
 
 
@@ -224,6 +257,11 @@ def _inits(z) -> dict:
             for arch in ARCHS}
 
 
+def _head_tp(tag: str) -> str:
+    """The case's ``HEAD_TP``."""
+    return "head_dim" if tag in HEAD_DIM else "padded"
+
+
 def _train(tag, case, inits, out) -> None:
     from repro_torch.distributed import compression as pt_comp
     from repro_torch.launch import mesh as pt_mesh
@@ -234,7 +272,7 @@ def _train(tag, case, inits, out) -> None:
     cfg = _cfg(arch, cf)
     mesh = pt_mesh.make_smoke_mesh(shape, names, "cpu")
     rules = shd.MeshRules(mesh, strategy=strategy)
-    model = build_model(cfg, remat="full", device="cpu")
+    model = _built(cfg, _head_tp(tag), remat="full")
     state = pt_tr.train_state_from_reference(model, inits[arch])
     state = pt_steps.shard_train_state(model, state, rules)
     o = OptConfig(**OPT)
@@ -271,6 +309,28 @@ def _train(tag, case, inits, out) -> None:
     for k, v in pytree.flatten_with_keys(local):
         out[f"{tag}/local{k}/{c}"] = _np(v)
     out[f"{tag}/coord"] = np.array(mesh.get_coordinate())
+    if arch in CROSS_LAYOUT and not compressed:
+        out[f"{tag}/restored_other"] = np.array(
+            _restored_under_the_other_layout(tag, cfg, whole, rules))
+
+
+def _restored_under_the_other_layout(tag, cfg, whole, rules) -> bool:
+    """The sharded state's checkpoint tree (its leaves whole), restored
+    into a model built under the other ``HEAD_TP`` and written back:
+    every leaf bit-equal."""
+    from repro_torch.models import transformer as pt_tr
+
+    other = "padded" if tag in HEAD_DIM else "head_dim"
+    model = _built(cfg, other, remat="full")
+    state = pt_steps.shard_train_state(model, pt_steps.init_train_state(
+        model, torch.Generator().manual_seed(0)), rules)
+    pt_tr.sharded_state_from_reference(model, state, whole, rules)
+    back = pt_tr.sharded_state_to_reference(state, rules, writer=True)
+    want = dict(pytree.flatten_with_keys(whole))
+    got = dict(pytree.flatten_with_keys(back))
+    return sorted(got) == sorted(want) and all(
+        torch.equal(torch.as_tensor(got[k]), torch.as_tensor(want[k]))
+        for k in want)
 
 
 def _serve(tag, arch, B, inits, ref, mesh, out) -> None:
@@ -278,7 +338,7 @@ def _serve(tag, arch, B, inits, ref, mesh, out) -> None:
 
     rules = shd.MeshRules(mesh, strategy="tp_sp")
     cfg = get_config(arch, smoke=True)
-    model = build_model(cfg, device="cpu")
+    model = _built(cfg, _head_tp(tag))
     pt_tr.params_from_reference(model, inits[arch]["params"])
     pt_steps.shard_params(model, rules)
     batch = pt_inputs.make_batch(cfg, B, PROMPT, seed=30, device="cpu")
@@ -320,8 +380,9 @@ def tp_run(tmp_path_factory):
     ref = _reference(PROG, tmp, core=CORE, CASES=CASES, STEPS=STEPS, OPT=OPT,
                      BATCH=BATCH, SEQ=SEQ, SERVE=SERVE, SERVE_MESH=SERVE_MESH,
                      PROMPT=PROMPT, S_MAX=S_MAX, DECODE=DECODE,
-                     FIT_ARCHS=ARCH_IDS,
-                     MESHES=LAYOUT_MESHES, TP_STRATEGIES=TP_STRATEGIES)
+                     FIT_ARCHS=ARCH_IDS, HEAD_DIM=HEAD_DIM,
+                     MESHES=LAYOUT_MESHES, TP_STRATEGIES=TP_STRATEGIES,
+                     HEAD_TPS=HEAD_TPS)
     return ref, _ranks(_job_tp, tmp, CORE)
 
 
@@ -369,13 +430,28 @@ def test_tp_local_blocks_equal_reference_shards(tp_run, tag):
         got.update({k: v for k, v in res.items()
                     if k.startswith(f"{tag}/local")})
     assert sorted(got) == sorted(want)
-    on_model = 0
+    on_model = set()
     for k, w in want.items():
         key = k[len(f"{tag}/local"):].rsplit("/", 1)[0]
         whole = ref[f"{tag}/state{key}"]
-        on_model += got[k].size < whole.size
+        if got[k].size < whole.size:
+            on_model.add(re.findall(r"\['(\w+)'\]", key)[-1])
         _hold(tag, key, got[k], w, whole)
     assert on_model, "no leaf is sharded"
+    if tag in HEAD_DIM:     # the KV weights split too: no repeated product
+        assert {"wq", "wk", "wv", "wo"} <= on_model, on_model
+
+
+@pytest.mark.parametrize("tag", sorted(t for t in CASES
+                                        if CASES[t][0] in CROSS_LAYOUT))
+def test_tp_state_restores_under_the_other_head_tp(tp_run, tag):
+    """A checkpoint written from a sharded state under one ``HEAD_TP``
+    (its leaves whole, the reference's layout) restores into a model
+    sharded under the other and is written back bit-equal, on every
+    rank: the switch changes where a leaf is cut, never what is
+    stored."""
+    _, ranks = tp_run
+    assert all(bool(r[f"{tag}/restored_other"]) for r in ranks)
 
 
 @pytest.mark.parametrize("tag", sorted(CASES))
@@ -465,21 +541,24 @@ def _fake_rules(shape, names, strategy, coord=None):
 @pytest.mark.parametrize("strategy", TP_STRATEGIES)
 @pytest.mark.parametrize("mname", sorted(LAYOUT_MESHES))
 @pytest.mark.parametrize("arch", ARCH_IDS)
-def test_tp_param_layout_equals_reference(tp_run, arch, mname, strategy):
+@pytest.mark.parametrize("head_tp", HEAD_TPS)
+def test_tp_param_layout_equals_reference(tp_run, head_tp, arch, mname,
+                                          strategy):
     """Every parameter's layout (storage and ``tp`` dimensions, block
-    shape) follows the reference's fitted spec, and every arch, the
-    recurrent families included, splits some leaf over the model axis
-    (their refusal of ``megatron_sp``'s sequence cut is the models':
+    shape) follows the reference's fitted spec, the model built under
+    each ``HEAD_TP``, and every arch, the recurrent families included,
+    splits some leaf over the model axis (their refusal of
+    ``megatron_sp``'s sequence cut is the models':
     ``tests/test_torch_tp_ssm.py``)."""
     ref, _ = tp_run
     shape, names = LAYOUT_MESHES[mname]
     rules = _fake_rules(shape, names, strategy)
-    model = build_model(get_config(arch, smoke=True), device="meta")
+    model = _built(get_config(arch, smoke=True), head_tp, device="meta")
     shapes, specs = model.abstract()
     flat_shapes = dict(pytree.flatten_with_keys(shapes))
     split = 0
     for k, logical in _spec_leaves(specs):
-        want = eval(str(ref[f"fit/{arch}/{mname}/{strategy}{k}"]))
+        want = eval(str(ref[f"fit/{head_tp}/{arch}/{mname}/{strategy}{k}"]))
         assert shd.fit_spec(rules, rules.spec(*logical),
                             flat_shapes[k].shape) == want, k
         whole = tuple(flat_shapes[k].shape)
