@@ -18,6 +18,7 @@ from collections import deque
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.format import bitpack_encode, bitpack_width
 from repro_torch.core.pushdown_torch import unpack_bitpacked
 from repro_torch.kernels import ops
@@ -114,10 +115,13 @@ def device_stream(loader, *, lookahead: int = 1,
 
 def make_fused_train_step(base_train_step):
     """Wrap a (state, batch) -> (state, metrics) step to take packed
-    words: the unpack and the labels run on the words' device first."""
+    words: the unpack and the labels run on the words' device first
+    (the span ``train.unpack``)."""
 
     def fused_step(state, packed):
-        return base_train_step(state, fused_batch(packed))
+        with obs.span("train.unpack"):
+            batch = fused_batch(packed)
+        return base_train_step(state, batch)
 
     return fused_step
 

@@ -39,6 +39,7 @@ from typing import Iterator
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core import objclass as oc
 from repro_torch.core.logical import RowRange
 from repro_torch.core.partition import ObjectMap
@@ -253,7 +254,10 @@ class ObjectDataLoader:
 
     # ------------------------------------------------------------ iterate
     def make_batch(self, step: int) -> dict[str, np.ndarray]:
-        return self._fetch_rows(self.rows_for_step(step))
+        """Step ``step``'s batch: the span ``loader.fetch``, on the
+        producer's thread where there is one."""
+        with obs.span("loader.fetch", step=step):
+            return self._fetch_rows(self.rows_for_step(step))
 
     def _producer(self) -> None:
         step = self.state.step
@@ -279,7 +283,8 @@ class ObjectDataLoader:
         if self._thread is None:
             batch = self.make_batch(self.state.step)
         else:
-            batch = self._q.get()
+            with obs.span("loader.wait"):
+                batch = self._q.get()
             if isinstance(batch, Exception):
                 raise batch
         self.state.step += 1

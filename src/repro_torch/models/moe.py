@@ -50,6 +50,10 @@ Where the port has to choose, it chooses the reference's numbers:
 * gates are cast to the values' dtype before the multiply, and every
   expert computes all its ``C`` slots, full or not, so a decode step
   (T = B, C = 8) reads every routed expert's weights.
+
+While recording (``repro_torch.obs``), each routing decision counts its
+entries (``moe.routed``, T * k) and those past capacity (``moe.dropped``,
+a 0-d device tensor, read when the counters are read).
 """
 
 from __future__ import annotations
@@ -58,6 +62,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import obs
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed import sharding as shd
 from repro_torch.models.layers import _param, tp_combine
@@ -134,6 +139,9 @@ def _moe_math(cfg: ArchConfig, x: torch.Tensor, router, w1, w3, w2,
     pos_in_e = ar - first
     keep = pos_in_e < C
     slot = torch.where(keep, sorted_e * C + pos_in_e, E * C)  # E*C: dropped
+    if obs.on():
+        obs.count("moe.routed", n)
+        obs.count("moe.dropped", (~keep).sum())
 
     buf = x.new_zeros((E * C + 1, D)).index_copy(0, slot, x[sorted_tok])
     buf = buf[:E * C].reshape(E, C, D)

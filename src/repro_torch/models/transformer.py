@@ -23,7 +23,12 @@ stacked block runs under the ``remat`` policy: ``"none"``, ``"full"``
 products without batch dimensions, jax's
 ``dots_with_no_batch_dims_saveable``); the pre-blocks run without one,
 as the reference runs them.  Each block returns its router loss beside
-the hidden state, and ``loss`` adds their sum (``aux_loss``).
+the hidden state, and ``loss`` adds their sum (``aux_loss``).  Each
+block's attention and FFN, and the head, are the spans ``model.attn``,
+``model.ffn`` and ``model.head`` (``repro_torch.obs``) with the block's
+``layer`` (the head's is ``n_layers``): with device intervals in
+``loss``'s forward and in ``prefill``, host time alone in
+``decode_step``.
 
 Under FSDP execution (parameters cut by ``train.steps.
 shard_train_state``, rules active) ``loss`` runs each block with its
@@ -63,6 +68,7 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch import obs
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.sharding import gathered, is_sharded
@@ -122,7 +128,9 @@ def _remat(fn, policy: str):
     caller's context, and so does its recompute: on the card the
     backward (and so the recompute) runs on the autograd engine's own
     thread, where the caller's context variables (the active
-    ``MeshRules``) are not set."""
+    ``MeshRules``) are not set.  The recompute runs under
+    ``obs.quiet()``: its spans and counters were taken in the
+    forward."""
     if policy == "none":
         return fn
     kw = {}
@@ -131,7 +139,16 @@ def _remat(fn, policy: str):
             create_selective_checkpoint_contexts, _dots_policy)
 
     def run(*args):
-        return checkpoint(contextvars.copy_context().run, fn, *args,
+        calls = 0
+
+        def once(*a):
+            nonlocal calls
+            calls += 1
+            if calls == 1:
+                return fn(*a)
+            with obs.quiet():
+                return fn(*a)
+        return checkpoint(contextvars.copy_context().run, once, *args,
                           use_reentrant=False, **kw)
     return run
 
@@ -228,7 +245,9 @@ class LanguageModel(nn.Module):
         the rank's share (``layers.sharded_objective``), the sequence
         gathered first where it is cut, the head vocabulary-parallel
         where it is split."""
-        with gathered(self.final_norm), gathered(self.embed, "head"):
+        with gathered(self.final_norm), gathered(self.embed, "head"), \
+                obs.span("model.head", device=h.device,
+                         layer=self.cfg.n_layers):
             h = apply_norm(self.cfg, self.final_norm, h)
             if is_sharded(self.embed["tok"]):
                 seq = self._seq()
@@ -325,6 +344,8 @@ class TransformerLM(LanguageModel):
         self.final_norm = init_norm(cfg, cfg.d_model, device)
         self.pre_blocks = nn.ModuleList(Block(cfg, False, device)
                                         for _ in range(n_pre))
+        for i, blk in enumerate(self.layers()):
+            blk.layer = i       # the ``layer`` of its spans
 
     def layers(self) -> list[Block]:
         """Every block in the order the model runs them and the cache
@@ -352,14 +373,19 @@ class TransformerLM(LanguageModel):
         before attention, as the reference's hint re-gathers it."""
         cfg = self.cfg
         seq = self._seq()
-        a_in = shd.all_gather(apply_norm(cfg, blk.ln1, h), 1,
-                              seq and seq.group)
-        forward = attn.mla_forward if cfg.attention == "mla" \
-            else attn.gqa_forward
-        a_out, kv = forward(cfg, blk.attn, a_in, positions, kv_out=kv_out)
-        h = h + tp_combine(a_out, attn.head_split(cfg, blk.attn)[0], seq)
-        f_out, aux = self._ffn(blk, apply_norm(cfg, blk.ln2, h), seq)
-        return h + f_out, aux, kv
+        with obs.span("model.attn", device=h.device, layer=blk.layer):
+            a_in = shd.all_gather(apply_norm(cfg, blk.ln1, h), 1,
+                                  seq and seq.group)
+            forward = attn.mla_forward if cfg.attention == "mla" \
+                else attn.gqa_forward
+            a_out, kv = forward(cfg, blk.attn, a_in, positions,
+                                kv_out=kv_out)
+            h = h + tp_combine(a_out, attn.head_split(cfg, blk.attn)[0],
+                               seq)
+        with obs.span("model.ffn", device=h.device, layer=blk.layer):
+            f_out, aux = self._ffn(blk, apply_norm(cfg, blk.ln2, h), seq)
+            h = h + f_out
+        return h, aux, kv
 
     def _ffn(self, blk: Block, x, seq=None):
         """(out, aux) of the block's MLP or mixture of experts; ``seq``:
@@ -456,7 +482,8 @@ class TransformerLM(LanguageModel):
             if hi > lo:
                 c1[i, :, :hi - lo], c2[i, :, :hi - lo] = a[:, lo:hi], \
                     b[:, lo:hi]
-        logits = self._serve_logits(h, dp)
+        with obs.span("model.head", device=h.device, layer=cfg.n_layers):
+            logits = self._serve_logits(h, dp)
         if mla:
             cache = {"ckv": c1, "krope": c2}
         elif KV_CACHE_QUANT:
@@ -491,25 +518,29 @@ class TransformerLM(LanguageModel):
                 h = self._decode_block(blk, h, pos, cache, i, quant, sp)
         new_cache = {k: v for k, v in cache.items() if k != "pos"}
         new_cache["pos"] = pos + 1
-        return self._serve_logits(h, dp), new_cache
+        with obs.span("model.head", layer=cfg.n_layers):
+            return self._serve_logits(h, dp), new_cache
 
     def _decode_block(self, blk: Block, h, pos, cache: dict, i: int,
                       quant: bool, sp):
         cfg = self.cfg
-        a_in = apply_norm(cfg, blk.ln1, h)
-        if cfg.attention == "mla":
-            a_out = attn.mla_decode(cfg, blk.attn, a_in, pos,
-                                    cache["ckv"][i], cache["krope"][i],
-                                    sp=sp)[0]
-        elif quant:
-            a_out = attn.gqa_decode_q8(
-                cfg, blk.attn, a_in, pos, cache["k"][i], cache["v"][i],
-                cache["k_scale"][i], cache["v_scale"][i], sp=sp)[0]
-        else:
-            a_out = attn.gqa_decode(cfg, blk.attn, a_in, pos,
-                                    cache["k"][i], cache["v"][i], sp=sp)[0]
-        h = h + a_out
-        return h + self._ffn(blk, apply_norm(cfg, blk.ln2, h))[0]
+        with obs.span("model.attn", layer=blk.layer):
+            a_in = apply_norm(cfg, blk.ln1, h)
+            if cfg.attention == "mla":
+                a_out = attn.mla_decode(cfg, blk.attn, a_in, pos,
+                                        cache["ckv"][i], cache["krope"][i],
+                                        sp=sp)[0]
+            elif quant:
+                a_out = attn.gqa_decode_q8(
+                    cfg, blk.attn, a_in, pos, cache["k"][i], cache["v"][i],
+                    cache["k_scale"][i], cache["v_scale"][i], sp=sp)[0]
+            else:
+                a_out = attn.gqa_decode(cfg, blk.attn, a_in, pos,
+                                        cache["k"][i], cache["v"][i],
+                                        sp=sp)[0]
+            h = h + a_out
+        with obs.span("model.ffn", layer=blk.layer):
+            return h + self._ffn(blk, apply_norm(cfg, blk.ln2, h))[0]
 
 
 # --------------------------------------------------------------------------

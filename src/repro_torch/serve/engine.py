@@ -19,12 +19,13 @@ concurrent scans single-flight into one OSD round trip.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Any
 
 import numpy as np
 import torch
 
-from repro_torch import pytree
+from repro_torch import obs, pytree
 from repro_torch.core.session import ScanSession
 from repro_torch.core.store import ObjectStore
 from repro_torch.serve import kvcache, steps
@@ -60,6 +61,7 @@ class ServeEngine:
         self.analytics_session: ScanSession | None = None
         self._prefill = steps.make_prefill_step(model)
         self._decode = steps.make_decode_step(model)
+        self._batches = itertools.count()
 
     # ------------------------------------------------------------ data
     def attach_analytics(self, vol, *,
@@ -80,39 +82,69 @@ class ServeEngine:
     # ------------------------------------------------------------ batch
     @torch.inference_mode()
     def generate(self, reqs: list[Request]) -> list[Completion]:
+        """Complete ``reqs`` together.  The call is the span
+        ``serve.generate`` (``repro_torch.obs``) and every span of it
+        carries its ``batch`` id: ``serve.prefill``, ``serve.pad_cache``,
+        the instant ``serve.first_token`` once the first token is on the
+        host, and one ``serve.decode`` a step, holding the step's launch
+        (``serve.decode.launch``, inside the decode step), the wait for
+        its tokens (``serve.token_sync``) and the per-slot bookkeeping
+        (``serve.bookkeeping``)."""
         if not reqs:
             return []
         dev = self.model.device
         B = len(reqs)
         S = max(len(r.prompt) for r in reqs)
-        prompts = np.zeros((B, S), np.int32)
-        for i, r in enumerate(reqs):
-            prompts[i, S - len(r.prompt):] = r.prompt  # left-pad
-        logits, cache = self._prefill(
-            {"tokens": torch.from_numpy(prompts).to(dev)})
-        cache = self._pad_cache(cache)  # prompt-length -> max_seq slots
-        max_new = max(r.max_new for r in reqs)
-        out = np.full((B, max_new), -1, np.int32)
-        done = np.zeros(B, bool)
-        tok = self._pick(logits)
-        for t in range(max_new):
-            out[:, t] = np.where(done, -1, tok.cpu().numpy())
+        batch = next(self._batches)
+        with obs.span("serve.generate", batch=batch, requests=B, padded=S):
+            prompts = np.zeros((B, S), np.int32)
             for i, r in enumerate(reqs):
-                if r.eos_id is not None and out[i, t] == r.eos_id:
-                    done[i] = True
-                if t + 1 >= r.max_new:
-                    done[i] = True
-            if done.all():
-                break
-            logits, cache = self._decode(
-                torch.from_numpy(out[:, t:t + 1].copy()).to(dev), cache)
-            tok = self._pick(logits)
+                prompts[i, S - len(r.prompt):] = r.prompt  # left-pad
+            with obs.span("serve.prefill", device=dev, batch=batch):
+                logits, cache = self._prefill(
+                    {"tokens": torch.from_numpy(prompts).to(dev)})
+                tok = self._pick(logits)
+            with obs.span("serve.pad_cache", batch=batch):
+                cache = self._pad_cache(cache)  # prompt-length -> max_seq
+            max_new = max(r.max_new for r in reqs)
+            out = np.full((B, max_new), -1, np.int32)
+            done = np.zeros(B, bool)
+            if max_new:
+                with obs.span("serve.token_sync", batch=batch):
+                    got = tok.cpu().numpy()
+                obs.instant("serve.first_token", batch=batch)
+                with obs.span("serve.bookkeeping", batch=batch):
+                    self._keep(reqs, out, done, got, 0)
+            for t in range(1, max_new):
+                if done.all():
+                    break
+                with obs.span("serve.decode", batch=batch, step=t):
+                    logits, cache = self._decode(
+                        torch.from_numpy(out[:, t - 1:t].copy()).to(dev),
+                        cache)
+                    tok = self._pick(logits)
+                    with obs.span("serve.token_sync", batch=batch):
+                        got = tok.cpu().numpy()
+                    with obs.span("serve.bookkeeping", batch=batch):
+                        self._keep(reqs, out, done, got, t)
         comps = []
         for i, r in enumerate(reqs):
             toks = out[i][out[i] >= 0][:r.max_new]
             comps.append(Completion(tokens=toks, steps=len(toks)))
         self._last_cache = cache
         return comps
+
+    @staticmethod
+    def _keep(reqs: list[Request], out: np.ndarray, done: np.ndarray,
+              tok: np.ndarray, t: int) -> None:
+        """Token ``t`` of every slot not yet done into ``out``; a slot is
+        done at its ``eos_id`` or its ``max_new``-th token."""
+        out[:, t] = np.where(done, -1, tok)
+        for i, r in enumerate(reqs):
+            if r.eos_id is not None and out[i, t] == r.eos_id:
+                done[i] = True
+            if t + 1 >= r.max_new:
+                done[i] = True
 
     def _pick(self, logits: torch.Tensor) -> torch.Tensor:
         # argmax takes the first of equal maxima, as jnp.argmax does

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+from repro_torch import obs
+
 
 def make_prefill_step(model):
     def prefill_step(batch):
@@ -10,6 +12,10 @@ def make_prefill_step(model):
 
 
 def make_decode_step(model):
+    """The decode step, the span ``serve.decode.launch`` inside it: below
+    any wrapper a caller sets around it, so the span is the host's time
+    to enqueue the step."""
     def serve_step(tokens, cache):
-        return model.decode_step(tokens, cache)
+        with obs.span("serve.decode.launch"):
+            return model.decode_step(tokens, cache)
     return serve_step

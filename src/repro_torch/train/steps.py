@@ -27,6 +27,7 @@ from typing import Any
 
 import torch
 
+from repro_torch import obs
 from repro_torch.distributed import sharding as shd
 from repro_torch.models.transformer import reference_path
 from repro_torch.train.optimizer import (
@@ -67,24 +68,30 @@ def make_train_step(model, opt_cfg: OptConfig, *, microbatches: int = 1,
     (the model's metrics carry it: its objective is the rank's share).
     ``on_microbatch(i)``, if given, is called after micro-batch ``i``'s
     gradients, loss and metrics are added in (the dry run counts one
-    micro-batch's work from it).
+    micro-batch's work from it).  The step's parts are the spans
+    ``train.forward``, ``train.backward`` and ``train.optimizer``
+    (``repro_torch.obs``), each with its device interval.
     """
 
-    def grad_fn(params: dict, batch: dict):
-        loss, metrics = model.loss(batch)
+    def grad_fn(params: dict, batch: dict, dev: torch.device):
+        with obs.span("train.forward", device=dev):
+            loss, metrics = model.loss(batch)
         # a parameter the batch does not reach (the audio family's token
         # embedding) has a zero gradient, as ``jax.grad`` gives it
-        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(
-            torch.autograd.grad(loss, list(params.values()),
-                                allow_unused=True), params.values())]
+        with obs.span("train.backward", device=dev):
+            grads = [torch.zeros_like(p) if g is None else g
+                     for g, p in zip(torch.autograd.grad(
+                         loss, list(params.values()), allow_unused=True),
+                         params.values())]
         metrics = {k: v.detach() for k, v in metrics.items()}
         return metrics.pop("loss", loss.detach()), metrics, dict(
             zip(params, grads))
 
     def train_step(state: dict, batch: dict):
         params = state["params"]
+        dev = next(iter(params.values())).device
         if microbatches == 1:
-            loss, metrics, grads = grad_fn(params, batch)
+            loss, metrics, grads = grad_fn(params, batch, dev)
         else:
             mb = {k: x.reshape(microbatches, x.shape[0] // microbatches,
                                *x.shape[1:]) for k, x in batch.items()}
@@ -93,8 +100,8 @@ def make_train_step(model, opt_cfg: OptConfig, *, microbatches: int = 1,
                      for n, p in params.items()}
             loss, metrics = None, None
             for i in range(microbatches):
-                l_i, m_i, g_i = grad_fn(params,
-                                        {k: x[i] for k, x in mb.items()})
+                l_i, m_i, g_i = grad_fn(
+                    params, {k: x[i] for k, x in mb.items()}, dev)
                 for n, g in g_i.items():
                     grads[n].add_(g.float())
                 del g_i
@@ -108,8 +115,10 @@ def make_train_step(model, opt_cfg: OptConfig, *, microbatches: int = 1,
             loss = loss / k
             metrics = {n: m / k for n, m in metrics.items()}
 
-        _, opt, gnorm = adamw_update(opt_cfg, grads, params, state["opt"],
-                                     decay=reference_decay(params))
+        with obs.span("train.optimizer", device=dev):
+            _, opt, gnorm = adamw_update(opt_cfg, grads, params,
+                                         state["opt"],
+                                         decay=reference_decay(params))
         metrics = dict(metrics)
         metrics.update({"loss": loss, "grad_norm": gnorm,
                         "step": opt["step"].clone()})

@@ -9,6 +9,13 @@ reference's layout (``train_state_to_reference``), so each package
 restores the other's.  The state lives on the model's device; the loop
 takes one host sync per step, to read the step's metrics.
 
+Each step is a ``train.step`` span (``repro_torch.obs``) holding
+``train.next``, ``train.h2d``, ``train.launch`` and ``train.sync``; its
+clock reads are the step's ``wall_s``.  A checkpoint that falls due is a
+``train.ckpt`` span after it, whose reads are ``ckpt_s``: ``wall_s``
+leaves the save out, as the straggler flag does.  While recording, a
+step on a CUDA device also counts ``alloc.retries``.
+
 Over sharded state: ``Trainer(..., rules=MeshRules(...))``, on every
 rank of a process group whose ranks are the mesh's, shards a fresh or
 restored state (``steps.shard_train_state``) and runs each step under
@@ -29,12 +36,12 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import time
 from typing import Any, Callable
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.checkpoint.ckpt import (CheckpointManager, is_writer,
                                         latest_step, restore)
 from repro_torch.core.store import ObjectStore
@@ -55,8 +62,8 @@ from repro_torch.train.steps import (abstract_train_state, init_train_state,
 class StragglerMonitor:
     """EWMA step-time tracker; flags steps slower than ``factor`` x EWMA.
 
-    On a real pod the flag triggers hedged reads / slot replacement; here
-    it feeds the loader's hedging and the trainer's log.
+    The flag goes into each step's record (``straggler``) and the
+    trainer's log line.
     """
 
     alpha: float = 0.1
@@ -222,16 +229,25 @@ class Trainer:
         self.loader.seek(start_step)
 
         for step in range(start_step, self.cfg.total_steps):
-            t0 = time.perf_counter()
-            batch = self._batch(next(self.loader))
-            with (shd.use_rules(self.rules) if self.rules is not None
-                  else contextlib.nullcontext()):
-                state, metrics = self.train_step(state, batch)
-            names = list(metrics)
-            values = torch.stack([metrics[k].float().reshape(())
-                                  for k in names]).tolist()   # one sync
+            retries = _alloc_retries(self.model.device) if obs.on() else None
+            with obs.timed("train.step", step=step + 1) as span:
+                with obs.span("train.next"):
+                    batch = next(self.loader)
+                with obs.span("train.h2d"):
+                    batch = self._batch(batch)
+                with obs.span("train.launch"), (
+                        shd.use_rules(self.rules) if self.rules is not None
+                        else contextlib.nullcontext()):
+                    state, metrics = self.train_step(state, batch)
+                names = list(metrics)
+                with obs.span("train.sync"):
+                    values = torch.stack([metrics[k].float().reshape(())
+                                          for k in names]).tolist()  # one sync
+                if retries is not None:
+                    obs.count("alloc.retries",
+                              _alloc_retries(self.model.device) - retries)
             metrics = dict(zip(names, values))
-            dt = time.perf_counter() - t0
+            dt = span.seconds
             slow = self.straggler.observe(dt)
             rec = dict(metrics, step=step + 1, wall_s=dt, straggler=slow)
             self.history.append(rec)
@@ -240,13 +256,22 @@ class Trainer:
                          f"loss={metrics['loss']:.4f} "
                          f"{dt * 1000:.0f}ms" + (" STRAGGLER" if slow else ""))
             if (step + 1) % self.ckpts.every_steps == 0:
-                t = time.perf_counter()
-                self._save(state, step + 1)
-                rec["ckpt_s"] = time.perf_counter() - t
+                with obs.timed("train.ckpt", step=step + 1) as span:
+                    self._save(state, step + 1)
+                rec["ckpt_s"] = span.seconds
             if on_step is not None:
                 on_step(step + 1)
         self.ckpts.wait()
         return state
+
+
+def _alloc_retries(device: torch.device) -> int:
+    """The caching allocator's count of retries after freeing its cache
+    (what a step that does not fit in memory pays); no other device has
+    the allocator, so none retries there."""
+    if device.type != "cuda":
+        return 0
+    return torch.cuda.memory_stats(device).get("num_alloc_retries", 0)
 
 
 def _host_like(tree):
