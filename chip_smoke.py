@@ -1,8 +1,9 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one H100.
 
 1. Prints torch/CUDA versions and the card's name and power limit.
-2. Builds the port's three CUDA kernels (``csrc/bitunpack.cu``,
-   ``csrc/filter_agg.cu``, ``csrc/block_agg.cu``) from this checkout,
+2. Builds the port's four CUDA kernels (``csrc/bitunpack.cu``,
+   ``csrc/filter_agg.cu``, ``csrc/block_agg.cu``, ``csrc/flash_fwd.cu``)
+   from this checkout,
    one nvcc each, all at once, and prints nvcc's register, shared-memory
    and spill report, ``bitunpack``'s dynamic shared memory at the shapes
    it runs, and each kernel's SASS instruction count (``cuobjdump``).
@@ -21,7 +22,12 @@
    reference's ``preferred_element_type=float32``), its route printed:
    each of the port's products forward and backward on the card against
    the CPU's upcast product, and the loss's head product at
-   starcoder2_7b's widths timed beside the upcast float32 one.
+   starcoder2_7b's widths timed beside the upcast float32 one.  Then
+   the inference attention kernel (``flash_fwd``) against the block loop
+   at ``FF_CHECKS`` (the serving cell's 32 x 2,048 with 36 heads over 4,
+   G = 1, a later chunk with ``q_offset`` > 0, no mask), and timed at
+   the cell's shape beside its bound, the loop and
+   ``scaled_dot_product_attention``.
 4. Drives the port's main path through the user entry points: a 2^27-row
    event table (1.5 GiB raw, half the paper's Table 1 scale, for the
    script's time) written into an
@@ -230,7 +236,12 @@ the flash backward; the serve path launches ``bitunpack`` in its
 analytics scans, the train paths once a step; so do the mixture-of-
 experts and recurrent serve and train paths, and the invariants launch
 none; in the multi-device path each rank launches it once a step; each
-example launches it).  The
+example launches it).  ``flash_fwd`` launches once a layer in the
+yi_9b and starcoder2_7b serve paths' prefill (bf16 GQA with heads of
+128) and in no other path: MLA, zamba2's heads of 80, training and the
+head-dimension split keep the block loop.  The ``kernels`` line counts
+each kernel's launches over the paths, ``flash_fwd_path``'s checks and
+timings left out.  The
 line before the last two is the ``kernels`` JSON object; the last line
 is ``{"ok": true, "device": {...}}``; any failure raises and the exit
 code is non-zero.  Needs a CUDA device and a checkout of the
@@ -275,7 +286,7 @@ OFFSET_N = (33, 4096, (1 << 24) + 17)
 WIDTH_BITS = (1, 7, 17, 32)    # bitunpack timed at 2^28 values of each
 AGG_SWEEP_N = (0, 1, 8191, 8192, 12345, (1 << 24) + 17)
 CMPS = ("<", "<=", ">", ">=", "==", "!=")
-KERNELS = ("bitunpack", "filter_agg", "block_agg")
+KERNELS = ("bitunpack", "filter_agg", "block_agg", "flash_fwd")
 # packed ingest: deepseek_67b's vocabulary (src/repro/configs/
 # deepseek_67b.py:20) and the train_4k shape (configs/base.py:36)
 INGEST_VOCAB, INGEST_SEQ, INGEST_BATCH = 102_400, 4096, 256
@@ -503,6 +514,21 @@ SC_HD_SEQ, SC_HD_BF16_LAYERS, SC_HD_BF16_STEPS = 1024, 2, 1
 MIXED_TOL = 1e-5             # of the largest entry
 MIXED_HEAD = (4 * 1024, 4608, 49152)
 
+# the inference attention kernel (kernels.flash_fwd) against the block
+# loop it stands in for, (B, Sq, Sk, H, K, causal, q_offset): the
+# serving cell's prefill (starcoder2_7b at 32 x 2,048), G = 1, a later
+# chunk of a prompt (Sq < Sk, q_offset > 0, on and off the tiles), and
+# no mask; within two bf16 steps and 2^-8 (tests/test_torch_flash_fwd.py
+# says why); timed at the cell's shape beside its bound, the loop and
+# PyTorch's scaled_dot_product_attention (a yardstick the port never
+# calls)
+FF_CHECKS = {"cell": (32, 2048, 2048, 36, 4, True, 0),
+             "g1": (2, 1024, 1024, 8, 8, True, 0),
+             "offset": (2, 512, 1536, 8, 2, True, 1024),
+             "offset_ragged": (1, 200, 700, 4, 2, True, 333),
+             "not_causal": (2, 512, 1024, 8, 2, False, 0)}
+FF_TOL = {"rtol": 2.0 ** -6, "atol": 2.0 ** -8}
+
 
 def _load_port():
     root = Path(__file__).resolve().parent
@@ -521,12 +547,13 @@ def _load_port():
     from repro_torch.kernels import bitunpack as bu
     from repro_torch.kernels import block_agg as ba
     from repro_torch.kernels import filter_agg as fa
+    from repro_torch.kernels import flash_fwd as ff
     from repro_torch.launch import op_analysis
     from repro_torch.models import archs, attention, layers, moe, transformer
     from repro_torch.serve import engine, kvcache
     from repro_torch.train import optimizer, trainer
     return argparse.Namespace(
-        core=core, fmt=fmt, bu=bu, fa=fa, ba=ba, ops=ops, ref=ref,
+        core=core, fmt=fmt, bu=bu, fa=fa, ba=ba, ff=ff, ops=ops, ref=ref,
         build=_build, pushdown=pushdown_torch, corpus=corpus,
         pipeline=pipeline, ingest=fused_ingest, elastic=elastic,
         ckpt=ckpt, kvcache=kvcache, pytree=pytree, configs=configs,
@@ -1115,12 +1142,12 @@ EXAMPLE_E2E_PRESET, EXAMPLE_E2E_STEPS, EXAMPLE_E2E_KILL = "100m", 20, 10
 
 
 def _zero_counts(P) -> None:
-    P.bu.launches = P.fa.launches = P.ba.launches = 0
+    P.bu.launches = P.fa.launches = P.ba.launches = P.ff.launches = 0
 
 
 def _counts(P) -> dict[str, int]:
     return {"bitunpack": P.bu.launches, "filter_agg": P.fa.launches,
-            "block_agg": P.ba.launches}
+            "block_agg": P.ba.launches, "flash_fwd": P.ff.launches}
 
 
 def _scalars(res: dict) -> dict[str, float]:
@@ -1158,7 +1185,8 @@ def pushdown_path(P, ev: dict[str, torch.Tensor],
     mo = _scalars(P.ops.masked_aggregate(ev["e_pt"], ev["hits"] > 20))
     walls["masked_aggregate_s"] = time.perf_counter() - t
     launches = _counts(P)                # ... and ends here
-    if launches != {"bitunpack": 0, "filter_agg": 2, "block_agg": 1}:
+    if launches != {"bitunpack": 0, "filter_agg": 2, "block_agg": 1,
+                    "flash_fwd": 0}:
         raise AssertionError(f"device pushdown launches {launches}")
 
     sel = table["e_pt"][table["run"] < 50]
@@ -1227,7 +1255,7 @@ def ingest_path(dev, P) -> dict:
         stream.close()
         loader.close()
         if launches != {"bitunpack": INGEST_STEPS, "filter_agg": 0,
-                        "block_agg": 0}:
+                        "block_agg": 0, "flash_fwd": 0}:
             raise AssertionError(f"ingest launches {launches}")
         for s, (fb, w) in enumerate(zip(got, want)):
             for k in ("tokens", "labels"):
@@ -1889,11 +1917,14 @@ def _invariant(P, model, dev, n_prefill: int, n_decode: int,
             "within_2e-2": ok, "wall_s": time.perf_counter() - t}
 
 
-def _serve_run(P, cfg, model, dev, seed: int, card: str) -> dict:
+def _serve_run(P, cfg, model, dev, seed: int, card: str,
+               flash: int) -> dict:
     """``model`` through ``ServeEngine``: generate the requests, park and
     resume the session bit-equal, one decode step traced, the analytics
     scans.  The launch counts are zeroed before the timed generate and
-    read after the analytics."""
+    read after the analytics; its one prefill must launch ``flash``
+    inference attention kernels (one a layer where the model's
+    attention takes ``flash_fwd``, else 0)."""
     n_params = sum(p.numel() for p in model.parameters())
     store = P.core.make_store(8, replicas=3)
     try:
@@ -1951,8 +1982,9 @@ def _serve_run(P, cfg, model, dev, seed: int, card: str) -> dict:
     ana = _analytics(P, engine, dev, seed)
     launches = _counts(P)                # ... and ends here
     if not launches["bitunpack"] > 0 or launches["filter_agg"] \
-            or launches["block_agg"]:
-        raise AssertionError(f"serve launches {launches}")
+            or launches["block_agg"] or launches["flash_fwd"] != flash:
+        raise AssertionError(f"serve launches {launches}, want "
+                             f"flash_fwd {flash}")
     steps = len(decode_s)
     res = {"arch": cfg.name, "params": n_params, "switches": switches(P),
            "batch": SERVE_BATCH, "prompt_lens": [len(r.prompt)
@@ -2015,7 +2047,8 @@ def serve_path(P, dev, seed: int, card: str) -> dict:
     ``SERVE_F32_LAYERS`` layers (gated)."""
     cfg = P.configs.get_config(SERVE_ARCH)
     model, init_s = _seeded(P, cfg, dev, seed)
-    res = _serve_run(P, cfg, model, dev, seed, card)
+    # GQA with heads of 128 in bf16: flash_fwd once a layer
+    res = _serve_run(P, cfg, model, dev, seed, card, flash=cfg.n_layers)
     res["init_s"] = init_s
     res["invariant_bf16"] = _invariant(P, model, dev, *INVARIANT_BF16, seed)
     print("serve invariant (bf16, no gate): "
@@ -2066,7 +2099,8 @@ def moe_serve_path(P, dev, seed: int, card: str) -> dict:
     _free_card()
     cfg = P.configs.get_config(MOE_ARCH)
     model, init_s = _seeded(P, cfg, dev, seed)
-    res = _serve_run(P, cfg, model, dev, seed, card)
+    # MLA's heads are 192 / 128 wide: the block loop, no flash_fwd
+    res = _serve_run(P, cfg, model, dev, seed, card, flash=0)
     res["init_s"] = init_s
     kv = res["kv_bytes"] - 4
     if kv != MOE_KV_BYTES:
@@ -2231,7 +2265,7 @@ def train_path(P, dev, seed: int, card: str, arch: str = TRAIN_ARCH,
     res = train_run(P, dev, seed, card, arch, layers, tag, why, lr)
     losses, aux, launches = res["losses"], res["aux_losses"], res["launches"]
     if launches != {"bitunpack": TRAIN_STEPS, "filter_agg": 0,
-                    "block_agg": 0}:
+                    "block_agg": 0, "flash_fwd": 0}:
         raise AssertionError(f"{tag} launches {launches}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"{tag}: losses {losses}")
@@ -2386,7 +2420,8 @@ def restart_path(P, dev, seed: int, card: str) -> dict:
     if [r["loss"] for r in again.history] != want_losses[start:]:
         raise AssertionError("restart: losses differ")
     ran = RESTART_STEPS + (RESTART_STEPS - start)
-    if launches != {"bitunpack": ran, "filter_agg": 0, "block_agg": 0}:
+    if launches != {"bitunpack": ran, "filter_agg": 0, "block_agg": 0,
+                    "flash_fwd": 0}:
         raise AssertionError(f"restart launches {launches}")
     saves = tr.ckpts.timings + again.ckpts.timings
     handoff = [r["ckpt_s"] for r in tr.history + again.history
@@ -2533,7 +2568,8 @@ def recurrent_serve_path(P, dev, seed: int, card: str, arch: str) -> dict:
     cfg = P.configs.get_config(arch)
     model, init_s = _seeded(P, cfg, dev, seed)
     weights = sum(p.numel() * p.element_size() for p in model.parameters())
-    res = _serve_run(P, cfg, model, dev, seed, card)
+    # no attention (rwkv6), or heads of 80 (zamba2's shared block)
+    res = _serve_run(P, cfg, model, dev, seed, card, flash=0)
     res["init_s"] = init_s
     cache = res["kv_bytes"] - 4
     want = _cache_bytes(model.abstract_cache(SERVE_BATCH, SERVE_MAX_SEQ)[0])
@@ -2877,8 +2913,7 @@ def multi_device_path(P, dev, seed: int, card: str) -> dict:
             lambda n: P.transformer.reference_path(n)[0])
     wall = time.perf_counter() - t0
     moe = [r["moe"] for r in ranks]
-    launches = {k: sum(t["launches"][k] for t in train)
-                for k in ("bitunpack", "filter_agg", "block_agg")}
+    launches = {k: sum(t["launches"][k] for t in train) for k in KERNELS}
     same = [a == b for a, b in zip(train[0]["digests"],
                                    train[1]["digests"])]
     res = {"ranks": MD_RANKS, "wall_s": wall, "check_step": MD_CHECK_STEP,
@@ -2926,7 +2961,7 @@ def multi_device_path(P, dev, seed: int, card: str) -> dict:
           f"layers and {MD_STEPS} steps, 2 ranks sharing one card (the "
           f"production mesh is (2, 16, 16)); one MoE layer of 26")
     if launches != {"bitunpack": MD_RANKS * MD_STEPS, "filter_agg": 0,
-                    "block_agg": 0}:
+                    "block_agg": 0, "flash_fwd": 0}:
         raise AssertionError(f"multi-device launches {launches}")
     for x in train:
         if x["launches"]["bitunpack"] != MD_STEPS:
@@ -3424,7 +3459,7 @@ def fsdp_path(P, dev, seed: int, card: str) -> dict:
                                  f"unsharded {x['unsharded_losses']}")
     ran = 2 * FS_BF16_STEPS - FS_CKPT_STEP     # the restart's steps again
     if launches != {"bitunpack": FS_RANKS * ran, "filter_agg": 0,
-                    "block_agg": 0}:
+                    "block_agg": 0, "flash_fwd": 0}:
         raise AssertionError(f"fsdp launches {launches}")
     if whole["n_differ"] or whole["step"] != FS_CKPT_STEP or len(
             b[0]["saves"]) != 1 or any(x["saves"] for x in b[1:]):
@@ -3847,7 +3882,7 @@ def tp_path(P, dev, seed: int, card: str) -> dict:
     if not (a["serve"]["within"] and a["serve"]["tokens_equal"]):
         raise AssertionError(f"model axis: serving {a['serve']}")
     if launches != {"bitunpack": TP_RANKS * TP_BF16_STEPS, "filter_agg": 0,
-                    "block_agg": 0}:
+                    "block_agg": 0, "flash_fwd": 0}:
         raise AssertionError(f"model axis launches {launches}")
     for x in b:
         if not all(np.isfinite(x["losses"])) or \
@@ -4158,11 +4193,13 @@ def recurrent_tp_path(P, dev, seed: int, card: str) -> dict:
         for r in ranks:
             f, b = r[f"{arch} f32"], r[f"{arch} bf16"]
             if f["launches"] != {"bitunpack": TP_F32_STEPS + 1,
-                                 "filter_agg": 0, "block_agg": 0}:
+                                 "filter_agg": 0, "block_agg": 0,
+                                 "flash_fwd": 0}:
                 raise AssertionError(f"recurrent model axis: {arch} (a) "
                                      f"launches {f['launches']}")
             if b["launches"] != {"bitunpack": RT_BF16_STEPS,
-                                 "filter_agg": 0, "block_agg": 0}:
+                                 "filter_agg": 0, "block_agg": 0,
+                                 "flash_fwd": 0}:
                 raise AssertionError(f"recurrent model axis: {arch} (b) "
                                      f"launches {b['launches']}")
             if not (b["finite"] and all(np.isfinite(b["losses"]))
@@ -4197,6 +4234,78 @@ def dispatched(P, fn) -> dict:
     with P.op_analysis.OpCounter() as oc:
         fn()
     return {str(f): n for f, n in oc.calls.items()}
+
+
+def flash_fwd_path(P, dev, seed: int, card: str) -> dict:
+    """The inference attention kernel against the block loop at
+    ``FF_CHECKS`` (one launch each), then timed at the serving cell's
+    shape: device ms a call (CUDA events around one call) beside its
+    bound (the causal half's FLOPs at 989 TFLOP/s), the loop's and
+    ``scaled_dot_product_attention``'s, with nvcc's registers and
+    spills."""
+    _free_card()
+    ff, attention = P.ff, P.attention
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+
+    def inputs(B, Sq, Sk, H, K):
+        return tuple(torch.randn(shape, generator=gen, device=dev,
+                                 dtype=torch.bfloat16)
+                     for shape in ((B, Sq, H, 128), (B, Sk, K, 128),
+                                   (B, Sk, K, 128)))
+
+    def loop(q, k, v, causal, q_offset):
+        with torch.no_grad():
+            return attention._flash_fwd(
+                q, k, v, causal, q_offset,
+                min(attention.FLASH_BLOCK, q.shape[1]),
+                min(attention.FLASH_BLOCK, k.shape[1]))[0]
+
+    errs = {}
+    before = ff.launches
+    for name, (B, Sq, Sk, H, K, causal, off) in FF_CHECKS.items():
+        q, k, v = inputs(B, Sq, Sk, H, K)
+        got = ff.flash_fwd(q, k, v, causal=causal, q_offset=off)
+        want = loop(q, k, v, causal, off)
+        torch.cuda.synchronize(dev)
+        errs[name] = float((got.float() - want.float()).abs().max())
+        if not torch.allclose(got.float(), want.float(), **FF_TOL):
+            raise AssertionError(f"flash_fwd {name} {FF_CHECKS[name]}: max "
+                                 f"|kernel - loop| {errs[name]!r} outside "
+                                 f"{FF_TOL}")
+        del q, k, v, got, want
+    if ff.launches != before + len(FF_CHECKS):
+        raise AssertionError(f"flash_fwd launches {ff.launches - before} "
+                             f"for {len(FF_CHECKS)} calls")
+    B, S, _, H, K, _, _ = FF_CHECKS["cell"]
+    q, k, v = inputs(B, S, S, H, K)
+    ms = isolated_ms(lambda: ff.flash_fwd(q, k, v), 20)
+    prof_ms, prof_events = device_ms(lambda: ff.flash_fwd(q, k, v), 20)
+    plain_ms = isolated_ms(lambda: loop(q, k, v, True, 0), 3)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    library_ms = isolated_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+    bound = ff.bound_ms(B, S, S, H)
+    ptxas = P.build.build_info["flash_fwd"]["ptxas"]
+    regs = re.findall(r"Used (\d+) registers", ptxas)
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                        r"loads", ptxas)
+    res = {"shape": {"B": B, "S": S, "H": H, "K": K, "hd": 128},
+           "max_abs_err": errs, "ms": ms, "profiler_ms": prof_ms,
+           "profiler_events": prof_events, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": bound,
+           "bound_by": "flops", "roofline": bound / ms,
+           "TFLOP_per_s": ff.causal_flops(B, S, S, H) / ms / 1e9,
+           "registers": regs, "spills": spills}
+    print("flash_fwd: " + json.dumps(res), flush=True)
+    print(f"kernel time flash_fwd [prefill attention, B {B}, S {S}, H {H}, "
+          f"K {K}, hd 128, causal, bf16]: device {ms:.4f} ms, bound "
+          f"{bound:.4f} ms at 989 TFLOP/s ({bound / ms:.1%} of it), loop "
+          f"(plain) {plain_ms:.3f} ms, scaled_dot_product_attention "
+          f"(library) {library_ms:.4f} ms; profiler {prof_ms:.4f} ms "
+          f"({prof_events:.2f} events a call); registers {regs}, spills "
+          f"{spills}; max |kernel - loop| {errs}  [{card}]", flush=True)
+    return res
 
 
 def mixed_path(P, dev, seed: int, card: str) -> dict:
@@ -4337,7 +4446,8 @@ def starcoder_path(P, dev, seed: int, card: str) -> dict:
     _free_card()
     cfg = P.configs.get_config(SC_ARCH)
     model, init_s = _seeded(P, cfg, dev, seed)
-    res = _serve_run(P, cfg, model, dev, seed, card)
+    # GQA with heads of 128 in bf16: flash_fwd once a layer
+    res = _serve_run(P, cfg, model, dev, seed, card, flash=cfg.n_layers)
     res["init_s"] = init_s
     del model
     _free_card()
@@ -4414,7 +4524,7 @@ def starcoder_path(P, dev, seed: int, card: str) -> dict:
         raise AssertionError(f"head_dim model axis: losses "
                              f"{[x['losses'] for x in b]}")
     if not launches["bitunpack"] > 0 or launches["filter_agg"] or \
-            launches["block_agg"]:
+            launches["block_agg"] or launches["flash_fwd"]:
         raise AssertionError(f"head_dim model axis launches {launches}")
     return out
 
@@ -4611,7 +4721,7 @@ def _phases(args, P, card: str, dev, start: float, dry: list,
 
     t = time.perf_counter()
     P.build.build_all(KERNELS)
-    for mod in (bu, P.fa, P.ba):
+    for mod in (bu, P.fa, P.ba, P.ff):
         mod.ensure_built()
     print(f"build: {len(KERNELS)} kernels, one nvcc each at once, "
           f"{time.perf_counter() - t:.2f}s with load", flush=True)
@@ -4678,7 +4788,8 @@ def _phases(args, P, card: str, dev, start: float, dry: list,
           f"D2H {split['d2h_ms']:.4f} ms  [{card}]", flush=True)
 
     mixed_path(P, dev, args.seed, card)
-    lap("kernel timings, mixed product")
+    at_ff = flash_fwd_path(P, dev, args.seed, card)
+    lap("kernel timings, mixed product, inference attention")
     t = time.perf_counter()
     ev = make_events(dev, ds_rows, args.seed)
     table = {k: v.cpu().numpy() for k, v in ev.items()}
@@ -4769,7 +4880,10 @@ def _phases(args, P, card: str, dev, start: float, dry: list,
                 if "launches" in planes[name]}}
     launches = {"bitunpack": sum(scans.values()),
                 "filter_agg": pd["launches"]["filter_agg"],
-                "block_agg": pd["launches"]["block_agg"]}
+                "block_agg": pd["launches"]["block_agg"],
+                "flash_fwd": sum(planes[name]["launches"]["flash_fwd"]
+                                 for name in PATHS
+                                 if "launches" in planes[name])}
     print(f"launches per path: scan bitunpack {res['launches']}; device "
           f"pushdown {pd['launches']}; packed ingest {ing['launches']}; "
           + "; ".join(f"{name} {planes[name]['launches']}"
@@ -4782,13 +4896,23 @@ def _phases(args, P, card: str, dev, start: float, dry: list,
             ("filter_agg", "src/repro/kernels/filter_agg.py:46", fa_err,
              at_fa),
             ("block_agg", "src/repro/kernels/block_agg.py:32", ba_err, at_ba)]
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": name, "route": "cuda",
         "source": f"src/repro_torch/csrc/{name}.cu", "replaces": replaces,
         "launches": launches[name], "max_abs_err": err, "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": "bytes", "library_ms": None}
-        for name, replaces, err, r in rows]}))
+        for name, replaces, err, r in rows]
+    kernels.append({
+        "name": "flash_fwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_fwd.cu",
+        "replaces": "none: the port's block loop on the inference path "
+                    "(src/repro_torch/models/attention.py::_flash_fwd)",
+        "launches": launches["flash_fwd"],
+        "max_abs_err": at_ff["max_abs_err"]["cell"], "ms": at_ff["ms"],
+        "plain_ms": at_ff["plain_ms"], "bound_ms": at_ff["bound_ms"],
+        "bound_by": "flops", "library_ms": at_ff["library_ms"]})
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

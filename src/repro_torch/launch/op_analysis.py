@@ -11,7 +11,9 @@ and accumulates the keys of ``hlo_analysis.analyze``:
               ``torch.utils.flop_counter`` (2 * m * n * k a product, as
               the reference's analyzer counts a ``dot``), the mixed
               product's ``mm.dtype`` / ``bmm.dtype`` (``layers.
-              mixed_einsum``) as ``mm`` / ``bmm``
+              mixed_einsum``) as ``mm`` / ``bmm``, and the inference
+              attention kernel's operator as the block loop's products
+              (:func:`flash_fwd_flops`)
   bytes       per operator: its tensor operands read once and its
               results written once; views and metadata queries move
               nothing
@@ -44,6 +46,7 @@ from torch.utils.flop_counter import flop_registry
 from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.distributed.sharding import wire_bytes
+from repro_torch.models.attention import FLASH_BLOCK
 
 COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
                "collective-permute")
@@ -94,6 +97,27 @@ def _tensors(x):
 _VIEW, _FREE_OP, _C10D_OP, _COMPUTE = range(4)
 
 
+def flash_fwd_flops(q, k, v, causal, q_offset, out_val=None) -> int:
+    """``repro_torch::flash_fwd`` (``kernels.flash_fwd``) counted as the
+    block loop it stands in for dispatched its products: for each
+    (query block, key block) pair up to the diagonal, in blocks of
+    ``attention.FLASH_BLOCK``, the scores (2 * bq * bk * hd a head) and
+    the value product (2 * bq * bk * hdv), so a dry run's FLOPs do not
+    depend on the route."""
+    B, Sq, H, hd = q.shape
+    Sk, hdv = v.shape[1], v.shape[-1]
+    bq, bk = min(FLASH_BLOCK, Sq), min(FLASH_BLOCK, Sk)
+    if not bq or not bk:
+        return 0
+    pairs = sum(1 for i in range(0, Sq, bq) for j in range(0, Sk, bk)
+                if not (causal and j > q_offset + i + bq - 1))
+    return 2 * B * H * bq * bk * (hd + hdv) * pairs
+
+
+# the port's own operators that do products: their schema name -> formula
+_OWN_FLOPS = {"repro_torch::flash_fwd": flash_fwd_flops}
+
+
 def _without_dtype(formula):
     """A flop formula for an overload that adds an ``out_dtype``
     argument (``aten::bmm.dtype``): the formula of its packet, given the
@@ -114,7 +138,8 @@ def _classify(func) -> tuple:
         return (_VIEW, None)
     if op in _FREE:
         return (_FREE_OP, None)
-    formula = flop_registry.get(func._overloadpacket)
+    formula = flop_registry.get(func._overloadpacket) \
+        or _OWN_FLOPS.get(func._schema.name)
     if formula is not None and any(a.name == "out_dtype"
                                    for a in func._schema.arguments):
         formula = _without_dtype(formula)

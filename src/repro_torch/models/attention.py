@@ -21,6 +21,13 @@ recomputed per block pair (a mixed product) from the saved LSE, its
 other four products in float32 as the reference's, dq per query block,
 dk and dv accumulated in float32 and folded from the G query heads onto
 their KV head.
+Inference in bf16 on the card with head widths of 128 and the heads
+whole (``_kernel_route``: no gradient wanted, as under the serve
+engine's ``inference_mode``) goes instead to one launch of the
+hand-written kernel ``kernels.flash_fwd``, which computes the loop's
+function in its arithmetic with S and P kept in registers.  Each call
+adds 1 to the recorder's ``attn.flash`` counter, and the kernel's route
+also to ``attn.flash_kernel``.
 
 Decode attends one query against the cache and writes the new K and V
 into it in place at ``min(pos, S - 1)`` (the reference's
@@ -70,11 +77,14 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import obs
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed import sharding as shd
+from repro_torch.kernels import flash_fwd as _ff
 from repro_torch.models.layers import _param, apply_rope, mixed_einsum
 
 _NEG = -1e30
+FLASH_BLOCK = 512              # the loop's query and key blocks, by default
 
 # the GQA layers' layout over the model axis, read when a model is built
 # (the reference's switch): "padded" (heads) or "head_dim"
@@ -324,6 +334,20 @@ class _FlashAttention(torch.autograd.Function):
                 None)
 
 
+def _kernel_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  q_offset: int, tp) -> bool:
+    """Whether a call goes to the inference kernel (``kernels.flash_fwd``):
+    CUDA tensors, bf16 q, k and v with head widths of 128, no gradient
+    wanted (the kernel keeps no LSE and has no backward: the serve
+    engine's ``inference_mode`` and the dry run's ``no_grad``), the heads
+    whole (``tp`` None) and ``q_offset`` >= 0.  Every other call keeps
+    the block loop."""
+    return (q.is_cuda and tp is None and not torch.is_grad_enabled()
+            and q_offset >= 0
+            and q.dtype == k.dtype == v.dtype == torch.bfloat16
+            and q.shape[-1] == k.shape[-1] == v.shape[-1] == _ff.HEAD_DIM)
+
+
 def flash_attention(
     q: torch.Tensor,          # (B, Sq, H, hd)
     k: torch.Tensor,          # (B, Sk, K, hd)
@@ -331,17 +355,26 @@ def flash_attention(
     *,
     causal: bool = True,
     q_offset: int = 0,        # absolute position of q[0] (prefill cont.)
-    block_q: int = 512,
-    block_k: int = 512,
+    block_q: int = FLASH_BLOCK,
+    block_k: int = FLASH_BLOCK,
     impl: str | None = None,
     tp=None,                  # q, k, v the rank's head-dimension slices
 ) -> torch.Tensor:
+    """Attention of q over k and v, (B, Sq, H, hdv) in q's dtype.  Where
+    :func:`_kernel_route` holds (inference in bf16 on the card, head
+    widths of 128, the heads whole) one ``kernels.flash_fwd`` launch;
+    otherwise the block loop and its backward, ``impl`` as the reference
+    selects them."""
     bq, bk = _blocks(q, v, block_q, block_k)
     impl = impl or FLASH_IMPL
+    if impl not in ("vjp", "scan"):
+        raise ValueError(f"flash_attention: unknown impl {impl!r}")
+    obs.count("attn.flash", 1)
+    if _kernel_route(q, k, v, q_offset, tp):
+        obs.count("attn.flash_kernel", 1)
+        return _ff.flash_fwd(q, k, v, causal=causal, q_offset=q_offset)
     if impl == "vjp":
         return _FlashAttention.apply(q, k, v, causal, q_offset, bq, bk, tp)
-    if impl != "scan":
-        raise ValueError(f"flash_attention: unknown impl {impl!r}")
     return _flash_fwd(q, k, v, causal, q_offset, bq, bk,
                       checkpoint_inner=torch.is_grad_enabled(), tp=tp)[0]
 
